@@ -14,6 +14,11 @@ package's `convert_state_dict`:
   `proj_kernel|bias`    -> `proj.weight|bias` (the patch-embed conv)
   Dense kernel [in,out] -> weight [out,in]; conv [kh,kw,in,out] -> [out,in,kh,kw];
   LayerNorm `scale`     -> `weight`
+
+`jax_tree_from_state_dict` is the reverse direction, for parameters,
+gradients and optimizer moments alike: any mapping of port parameter names
+to tensors becomes a nested dict of numpy arrays under the JAX package's
+names and layouts, so the two can be compared leaf by leaf.
 """
 
 from __future__ import annotations
@@ -107,3 +112,43 @@ def state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
                 relative_position_index(ws).copy()
             )
     return out
+
+
+def jax_tree_from_state_dict(named: Mapping[str, Any]) -> Dict[str, Any]:
+    """Port names -> tensors (a state dict, `named_parameters()`, gradients
+    keyed alike) as the JAX package's nested params dict of numpy arrays:
+    the inverse of `state_dict_from_jax`. Index buffers are left out."""
+    tree: Dict[str, Any] = {}
+    for key, value in named.items():
+        *mods, leaf = key.split(".")
+        if leaf == "relative_position_index":
+            continue
+        arr = value.detach().cpu().float().numpy() if isinstance(value, torch.Tensor) else np.asarray(value)
+        if mods == ["patch_embed", "proj"]:  # the patch-embed conv
+            mods, leaf = mods[:-1], "proj_kernel" if leaf == "weight" else "proj_bias"
+            arr = arr.transpose(2, 3, 1, 0) if leaf == "proj_kernel" else arr
+        elif mods[-1] == "attn" and leaf.startswith("in_proj_"):
+            mods, leaf = mods[:-1], "in_proj_kernel" if leaf == "in_proj_weight" else leaf
+            arr = arr.T if leaf == "in_proj_kernel" else arr
+        elif leaf == "weight":
+            leaf = "scale" if arr.ndim == 1 else "kernel"
+            arr = arr.T if arr.ndim == 2 else arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr
+        if mods[-2:] == ["attn", "out_proj"]:
+            mods = mods[:-2] + ["out_proj"]
+        if len(mods) >= 2 and mods[-2] in ("seg_head", "reconstruction"):
+            mods = mods[:-2] + ["conv1" if mods[-1] == "0" else "conv2"]
+        if len(mods) >= 2 and mods[-2] == "mlp":
+            mods[-1] = "fc1" if mods[-1] == "0" else "fc2"
+        path, i = [], 0
+        while i < len(mods):
+            if mods[i] in _LIST_MODULES and i + 1 < len(mods) and mods[i + 1].isdigit():
+                path.append(f"{mods[i]}_{mods[i + 1]}")
+                i += 2
+            else:
+                path.append(mods[i])
+                i += 1
+        node = tree
+        for name in path:
+            node = node.setdefault(name, {})
+        node[leaf] = np.ascontiguousarray(arr)
+    return tree

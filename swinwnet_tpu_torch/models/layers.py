@@ -8,12 +8,20 @@
   `reconstruction.0`/`.2`, `attn.in_proj_weight`, ...), so upstream `.pth`
   files load as they are.
 * `dtype` is the compute dtype. Products take their operands in it, LayerNorm
-  statistics and softmax are fp32, and activations between modules are kept
-  in it: the JAX package's cast points.
-* Dropout comes with the training slice: the models take no dropout rate.
-* `BasicLayer` sends a whole level to the fused block kernel
-  (`ops/swin_block.py`) with the JAX package's gate: inference, C <= 96 in
-  bf16 or C <= 48 in fp32, and at least 128 windows.
+  statistics and softmax are fp32, and a module's output is in it, with the
+  JAX package's one exception: the cross-attention returns fp32
+  (`q + gamma * out` with an fp32 gamma), so in bf16 the residual trunks of
+  the levels it feeds (the bottleneck and the first decoder stage) are fp32.
+* The models take no dropout rate (every rate of the published recipe is 0),
+  so a forward is deterministic in `train()` and in `eval()` alike, and both
+  take the same route.
+* `BasicLayer` sends a whole level to a fused block kernel
+  (`ops/swin_block.py`, through its differentiable entry point) with the
+  JAX package's gate: at least 128 windows; C <= 96 in bf16 or C <= 48 in
+  fp32 goes to `fused_layout` ("cmajor", or "nmajor" where the grid tiles);
+  wider levels up to C = 384 go to the row-major kernel when `fused_deep`.
+  `fused_deep` and `fused_layout` stand for the JAX package's
+  SWINWNET_FUSED_DEEP and SWINWNET_FUSED_LAYOUT environment variables.
 """
 
 from __future__ import annotations
@@ -27,12 +35,14 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.resize import bilinear_resize
-from ..ops.swin_block import fused_swin_block_cst
+from ..ops.swin_block import fused_block_autodiff
 from ..ops.window import (
     relative_position_index,
     window_pad_mask_np,
     window_partition,
+    window_partition_nmajor,
     window_reverse,
+    window_reverse_nmajor,
 )
 
 
@@ -125,7 +135,7 @@ class WindowAttention(nn.Module):
 @functools.lru_cache(maxsize=64)
 def _pad_mask_tensor(H: int, W: int, ws: int, B: int, layout: str, device: str) -> Optional[torch.Tensor]:
     """The pad mask on `device`: "windows" [nW, N, 1] for the unfused blocks,
-    "kernel" [N, B*nW] for the fused kernel."""
+    "cmajor" [N, B*nW] and "rowmajor" [B*nW*N, 1] for the fused kernels."""
     m = window_pad_mask_np(H, W, ws)
     if m is None:
         return None
@@ -134,7 +144,8 @@ def _pad_mask_tensor(H: int, W: int, ws: int, B: int, layout: str, device: str) 
     with torch.inference_mode(False):
         if layout == "windows":
             return torch.from_numpy(m.copy()).to(device)
-        return torch.from_numpy(np.tile(m[:, :, 0], (B, 1))).to(device).t()
+        tiled = torch.from_numpy(np.tile(m[:, :, 0], (B, 1))).to(device)  # [B*nW, N]
+        return tiled.t() if layout == "cmajor" else tiled.reshape(-1, 1)
 
 
 class SwinTransformerBlock(nn.Module):
@@ -166,60 +177,101 @@ class SwinTransformerBlock(nn.Module):
         y = linear(F.gelu(linear(y, self.mlp[0], dt)), self.mlp[3], dt)
         return x + y
 
-    def forward_fused(self, xc: torch.Tensor, pad_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """The whole block as one fused-kernel call on a [C, N, Wt] view;
-        pad_mask is [N, Wt]."""
+    def forward_fused(self, x: torch.Tensor, layout: str,
+                      pad_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The whole block as one call of the differentiable fused block on
+        x in `layout`: "cmajor" [C, N, Wt] with pad_mask [N, Wt], "rowmajor"
+        [Wt*N, C] with pad_mask [Wt*N, 1], "nmajor" [N, Wt, C]. The weights
+        go in as views of the parameters (cast to the compute dtype in
+        bf16): [in, out] is `weight.t()`, and the cmajor entry takes wqkv,
+        w1 and w2 as [out, in]."""
         dt = self.dtype
         qkv_b = self.attn.qkv.bias
         if qkv_b is None:
-            qkv_b = torch.zeros(3 * self.dim, device=xc.device)
-        return fused_swin_block_cst(
-            xc,
+            qkv_b = torch.zeros(3 * self.dim, device=x.device)
+        in_out = lambda lin: lin.weight.to(dt).t()
+        out_in = (lambda lin: lin.weight.to(dt)) if layout == "cmajor" else in_out
+        return fused_block_autodiff(
+            layout, self.num_heads, x.to(dt), pad_mask,
             self.norm1.weight, self.norm1.bias,
-            self.attn.qkv.weight.to(dt), qkv_b,
+            out_in(self.attn.qkv), qkv_b,
             self.attn.rel_bias(),
-            self.attn.proj.weight.t().to(dt).contiguous(), self.attn.proj.bias,
+            in_out(self.attn.proj), self.attn.proj.bias,
             self.norm2.weight, self.norm2.bias,
-            self.mlp[0].weight.to(dt), self.mlp[0].bias,
-            self.mlp[3].weight.to(dt), self.mlp[3].bias,
-            num_heads=self.num_heads, pad_mask=pad_mask,
+            out_in(self.mlp[0]), self.mlp[0].bias,
+            out_in(self.mlp[3]), self.mlp[3].bias,
         )
 
 
 class BasicLayer(nn.Module):
     """`depth` Swin blocks, shift 0. The grid is partitioned into windows once,
-    every block runs on window tokens, and the windows are reversed once."""
+    every block runs on window tokens, and the windows are reversed once.
+    `fused_deep` and `fused_layout` are the JAX package's
+    SWINWNET_FUSED_DEEP=1 and SWINWNET_FUSED_LAYOUT."""
+
+    # the JAX gate's least window count for a fused level (it lifts the rule
+    # under its interpret switch; the CPU tests lower this attribute instead)
+    min_windows = 128
 
     def __init__(self, dim: int, depth: int, num_heads: int, window_size: int = 5,
                  mlp_ratio: float = 4.0, qkv_bias: bool = True, fused_blocks: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, fused_deep: bool = False,
+                 fused_layout: str = "cmajor"):
         super().__init__()
+        if fused_layout not in ("cmajor", "nmajor"):
+            raise ValueError(f"fused_layout must be 'cmajor' or 'nmajor', got {fused_layout!r}")
         self.dim, self.window_size, self.fused_blocks, self.dtype = dim, window_size, fused_blocks, dtype
+        self.fused_deep, self.fused_layout = fused_deep, fused_layout
         self.blocks = nn.ModuleList(
             SwinTransformerBlock(dim, num_heads, window_size, mlp_ratio, qkv_bias, dtype)
             for _ in range(depth)
         )
 
-    def uses_kernel(self, B: int, H: int, W: int) -> bool:
+    def fused_route(self, B: int, H: int, W: int) -> str:
         """The JAX package's fused-kernel gate (its TPU-backend test aside):
-        inference, C <= 96 in bf16 (48 in fp32), at least 128 windows."""
+        the layout of the kernel this level goes to, or "" for the unfused
+        blocks. At least 128 windows; C <= 96 in bf16 (48 in fp32) goes to
+        `fused_layout`, where "nmajor" has no pad mask and falls back on a
+        grid that does not tile; wider levels up to C = 384 go to
+        "rowmajor" when `fused_deep`."""
         ws = self.window_size
         cap = 96 if self.dtype == torch.bfloat16 else 48
         n_windows = B * (-(-H // ws)) * (-(-W // ws))
-        return self.fused_blocks and not self.training and n_windows >= 128 and self.dim <= cap
+        if not (self.fused_blocks and n_windows >= self.min_windows):
+            return ""
+        if self.dim <= cap:
+            padded = H % ws != 0 or W % ws != 0
+            return "" if self.fused_layout == "nmajor" and padded else self.fused_layout
+        return "rowmajor" if self.fused_deep and self.dim <= 384 else ""
+
+    def uses_kernel(self, B: int, H: int, W: int) -> bool:
+        return self.fused_route(B, H, W) != ""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         B, H, W, C = x.shape
         ws = self.window_size
-        xw, (Hp, Wp) = window_partition(x.to(self.dtype), ws)  # [Wt, N, C]
         dev = str(x.device)
-        if self.uses_kernel(B, H, W):
+        route = self.fused_route(B, H, W)
+        if route == "nmajor":
+            xw, (Hp, Wp) = window_partition_nmajor(x, ws)  # [N, Wt, C]
+            for blk in self.blocks:
+                xw = blk.forward_fused(xw, "nmajor")
+            x = window_reverse_nmajor(xw, ws, Hp, Wp)
+            return x[:, :H, :W, :] if (Hp, Wp) != (H, W) else x
+        xw, (Hp, Wp) = window_partition(x, ws)  # [Wt, N, C]
+        if route == "cmajor":
             # the kernel reads the token-major windows through a [C, N, Wt] view
-            mask = _pad_mask_tensor(H, W, ws, B, "kernel", dev)
+            mask = _pad_mask_tensor(H, W, ws, B, "cmajor", dev)
             xc = xw.permute(2, 1, 0)
             for blk in self.blocks:
-                xc = blk.forward_fused(xc, mask)
+                xc = blk.forward_fused(xc, "cmajor", mask)
             xw = xc.permute(2, 1, 0)
+        elif route == "rowmajor":
+            mask = _pad_mask_tensor(H, W, ws, B, "rowmajor", dev)
+            x2 = xw.reshape(-1, C)
+            for blk in self.blocks:
+                x2 = blk.forward_fused(x2, "rowmajor", mask)
+            xw = x2.reshape(xw.shape)
         else:
             mask = _pad_mask_tensor(H, W, ws, B, "windows", dev)
             for blk in self.blocks:
@@ -279,13 +331,13 @@ class SwinEncoder(nn.Module):
 
     def __init__(self, embed_dim: int, depths: Sequence[int], num_heads: Sequence[int],
                  window_size: int, mlp_ratio: float, qkv_bias: bool, fused_blocks: bool,
-                 dtype: torch.dtype):
+                 dtype: torch.dtype, fused_deep: bool = False, fused_layout: str = "cmajor"):
         super().__init__()
         n = len(depths)
         dims = [embed_dim * 2 ** i for i in range(n)]
         self.layers = nn.ModuleList(
             BasicLayer(dims[i], depths[i], num_heads[i], window_size, mlp_ratio, qkv_bias,
-                       fused_blocks, dtype)
+                       fused_blocks, dtype, fused_deep, fused_layout)
             for i in range(n)
         )
         self.downs = nn.ModuleList(PatchMerging(dims[i], dtype) for i in range(n - 1))
@@ -305,9 +357,10 @@ class Bottleneck(nn.Module):
     reference)."""
 
     def __init__(self, dim: int, num_heads: int, window_size: int, fused_blocks: bool,
-                 dtype: torch.dtype):
+                 dtype: torch.dtype, fused_deep: bool = False, fused_layout: str = "cmajor"):
         super().__init__()
-        self.layer = BasicLayer(dim, 2, num_heads, window_size, fused_blocks=fused_blocks, dtype=dtype)
+        self.layer = BasicLayer(dim, 2, num_heads, window_size, fused_blocks=fused_blocks, dtype=dtype,
+                                fused_deep=fused_deep, fused_layout=fused_layout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.layer(x)
@@ -320,7 +373,7 @@ class SwinDecoder(nn.Module):
 
     def __init__(self, embed_dim: int, depths: Sequence[int], num_heads: Sequence[int],
                  window_size: int, mlp_ratio: float, qkv_bias: bool, fused_blocks: bool,
-                 dtype: torch.dtype):
+                 dtype: torch.dtype, fused_deep: bool = False, fused_layout: str = "cmajor"):
         super().__init__()
         self.dtype = dtype
         dec_depths, dec_heads = tuple(depths[-2::-1]), tuple(num_heads[-2::-1])
@@ -328,7 +381,7 @@ class SwinDecoder(nn.Module):
         self.ups = nn.ModuleList(PatchExpanding(d, dtype) for d in dims)
         self.swin_blocks = nn.ModuleList(
             BasicLayer(d, dec_depths[i], dec_heads[i], window_size, mlp_ratio, qkv_bias,
-                       fused_blocks, dtype)
+                       fused_blocks, dtype, fused_deep, fused_layout)
             for i, d in enumerate(dims)
         )
         self.linears = nn.ModuleList(nn.Linear(d, d // 2) for d in dims)
@@ -339,7 +392,9 @@ class SwinDecoder(nn.Module):
             x = self.ups[i](x)
             th, tw = skip.shape[1], skip.shape[2]
             x = x[:, :th, :tw, :]
-            x = torch.cat([x, skip.to(x.dtype)], dim=-1)
+            # a skip that went through the cross-attention is fp32: promote
+            dt = torch.promote_types(x.dtype, skip.dtype)
+            x = torch.cat([x.to(dt), skip.to(dt)], dim=-1)
             x = self.swin_blocks[i](x)
             x = linear(x, self.linears[i], self.dtype)
         return x
@@ -379,13 +434,14 @@ class UpscalingHead(nn.Module):
 
     def __init__(self, error_matrix: bool, embed_dim: int, window_size: int, num_heads: int,
                  depth: int, mlp_ratio: float, qkv_bias: bool, fused_blocks: bool,
-                 dtype: torch.dtype):
+                 dtype: torch.dtype, fused_deep: bool = False, fused_layout: str = "cmajor"):
         super().__init__()
         self.dtype = dtype
         dims = [embed_dim, embed_dim // 2]
         self.ups = nn.ModuleList(PatchExpanding(d, dtype) for d in dims)
         self.swin_blocks = nn.ModuleList(
-            BasicLayer(d // 2, depth, num_heads, window_size, mlp_ratio, qkv_bias, fused_blocks, dtype)
+            BasicLayer(d // 2, depth, num_heads, window_size, mlp_ratio, qkv_bias, fused_blocks, dtype,
+                       fused_deep, fused_layout)
             for d in dims
         )
         c = embed_dim // 4
@@ -452,7 +508,8 @@ class CrossAttentionBlock(nn.Module):
         attn = torch.softmax(qp @ kp.transpose(-1, -2), dim=-1).to(dt)
         out = (attn.float() @ vp).transpose(1, 2).reshape(B, Lq, C).to(dt)
         out = linear(out, self.attn.out_proj, dt)
-        return (q.float() + self.gamma * out.float()).to(q.dtype)
+        # fp32 whatever the compute dtype: gamma is fp32, as in the JAX package
+        return q.float() + self.gamma * out.float()
 
 
 class MultiScaleCrossAttention(nn.Module):

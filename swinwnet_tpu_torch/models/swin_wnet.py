@@ -38,7 +38,14 @@ from .layers import (
 class SwinWNet(nn.Module):
     """Built on `device` (default: the CUDA device; "cpu" only when asked)
     with torch-default initial weights drawn from `generator` (a CPU
-    torch.Generator; None draws from a generator seeded with 0)."""
+    torch.Generator; None draws from a generator seeded with 0).
+
+    `fused_blocks` sends the levels the gate admits to the fused block
+    kernels (the JAX package's `use_pallas`); `fused_deep` adds the levels
+    above the width cap through the row-major kernel (its
+    SWINWNET_FUSED_DEEP=1) and `fused_layout` picks "cmajor" or "nmajor" for
+    the levels under the cap (its SWINWNET_FUSED_LAYOUT). Both are carried
+    down to every BasicLayer."""
 
     def __init__(
         self,
@@ -55,6 +62,8 @@ class SwinWNet(nn.Module):
         dtype: Union[str, torch.dtype] = "float32",
         device: Optional[Union[str, torch.device]] = None,
         generator: Optional[torch.Generator] = None,
+        fused_deep: bool = False,
+        fused_layout: str = "cmajor",
     ):
         super().__init__()
         device = resolve_device(device)
@@ -64,22 +73,24 @@ class SwinWNet(nn.Module):
         tower = dict(
             embed_dim=embed_dim, depths=depths, num_heads=num_heads, window_size=window_size,
             mlp_ratio=mlp_ratio, qkv_bias=qkv_bias, fused_blocks=fused_blocks, dtype=dt,
+            fused_deep=fused_deep, fused_layout=fused_layout,
         )
+        fused = dict(fused_deep=fused_deep, fused_layout=fused_layout)
         in_ch = in_chans + 1 if error_matrix else in_chans
         ca_dims = (embed_dim * 4, embed_dim * 8)
         with torch.device("meta"):  # shapes only; weights are drawn below
             self.patch_embed = ScaleAwarePatchEmbed(patch_size, in_ch, embed_dim, dt)
             self.segmentator_encoder = SwinEncoder(**tower)
-            self.segmentator_bottleneck = Bottleneck(embed_dim * 8, num_heads[-1], window_size, fused_blocks, dt)
+            self.segmentator_bottleneck = Bottleneck(embed_dim * 8, num_heads[-1], window_size, fused_blocks, dt, **fused)
             self.segmentator_decoder = SwinDecoder(**tower)
             self.segmentator_head = SegmentationHead(embed_dim, patch_size, dt)
             self.ca_seg_to_sr = MultiScaleCrossAttention(ca_dims, (3, 3), dt)
             self.ca_sr_to_seg = MultiScaleCrossAttention(ca_dims, (3, 3), dt)
             self.upscaler_encoder = SwinEncoder(**tower)
-            self.upscaler_bottleneck = Bottleneck(embed_dim * 8, num_heads[-1], window_size, fused_blocks, dt)
+            self.upscaler_bottleneck = Bottleneck(embed_dim * 8, num_heads[-1], window_size, fused_blocks, dt, **fused)
             self.upscaler_decoder = SwinDecoder(**tower)
             self.upscaler_head = UpscalingHead(
-                error_matrix, embed_dim, window_size, 3, 2, mlp_ratio, qkv_bias, fused_blocks, dt
+                error_matrix, embed_dim, window_size, 3, 2, mlp_ratio, qkv_bias, fused_blocks, dt, **fused
             )
         self.to_empty(device="cpu")
         init_weights(self, generator)

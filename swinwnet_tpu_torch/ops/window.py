@@ -67,6 +67,28 @@ def window_reverse_cmajor(windows: torch.Tensor, window_size: int, Hp: int, Wp: 
     return x.permute(3, 4, 1, 5, 2, 0).reshape(B, Hp, Wp, C)
 
 
+def window_partition_nmajor(x: torch.Tensor, window_size: int):
+    """[B, H, W, C] -> ([ws*ws, B * nW, C], (Hp, Wp)), token-slot-major
+    windows: the layout of `fused_swin_block_wide`."""
+    B, _, _, C = x.shape
+    ws = window_size
+    x, Hp, Wp = _pad_to_window(x, ws)
+    x = x.reshape(B, Hp // ws, ws, Wp // ws, ws, C)
+    x = x.permute(2, 4, 0, 1, 3, 5).reshape(ws * ws, -1, C)
+    return x, (Hp, Wp)
+
+
+def window_reverse_nmajor(windows: torch.Tensor, window_size: int, Hp: int, Wp: int) -> torch.Tensor:
+    """[ws*ws, B * nW, C] -> [B, Hp, Wp, C] (inverse of
+    `window_partition_nmajor`)."""
+    ws = window_size
+    nW = (Hp // ws) * (Wp // ws)
+    B = windows.shape[1] // nW
+    C = windows.shape[-1]
+    x = windows.reshape(ws, ws, B, Hp // ws, Wp // ws, C)
+    return x.permute(2, 3, 0, 4, 1, 5).reshape(B, Hp, Wp, C)
+
+
 @functools.lru_cache(maxsize=16)
 def relative_position_index(window_size: int) -> np.ndarray:
     """Static [N, N] index into the (2w-1)^2 relative-position bias table."""

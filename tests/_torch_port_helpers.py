@@ -19,10 +19,18 @@ CFG = dict(patch_size=2, in_chans=1, error_matrix=True, embed_dim=48,
            depths=(2, 2, 2, 2), num_heads=(3, 6, 12, 24), window_size=5)
 
 
-def jax_params(seed=0, gamma=0.5):
-    """Random JAX params for the small SwinWNet, drawn with numpy; the four
-    cross-attention gammas are set to `gamma` so that those blocks are live."""
-    model = JaxSwinWNet(**CFG)
+# the training tests' model: narrow and one block deep, so that the JAX steps
+# compile in seconds; 20x30 inputs give 10x15 tokens (L1 down pads)
+TINY = dict(patch_size=2, in_chans=1, error_matrix=True, embed_dim=12,
+            depths=(1, 1, 1, 1), num_heads=(3, 3, 3, 3), window_size=5)
+TINY_H, TINY_W = 20, 30
+
+
+def jax_params(seed=0, gamma=0.5, cfg=None):
+    """Random JAX params for the small SwinWNet (or `cfg`), drawn with numpy;
+    the four cross-attention gammas are set to `gamma` so that those blocks
+    are live."""
+    model = JaxSwinWNet(**(cfg or CFG))
     shapes = jax.eval_shape(model.init, jax.random.PRNGKey(0), np.zeros((1, 2, H, W), np.float32))
     rng = np.random.default_rng(seed)
 
@@ -60,3 +68,31 @@ def assert_close(got, want, tol=2e-4, name=""):
     assert got.shape == want.shape, f"{name}: {got.shape} vs {want.shape}"
     err = np.abs(got - want).max() / max(np.abs(want).max(), 1e-6)
     assert err < tol, f"{name}: max rel err {err:.3e}"
+
+
+def training_batches(n=2, batch=2, seed=0):
+    """`n` (images [B, 2, h, w], masks [B, h, w]) numpy batches at the tiny
+    training geometry."""
+    rng = np.random.default_rng(seed)
+    return [
+        (rng.uniform(0, 1e3, (batch, 2, TINY_H, TINY_W)).astype(np.float32),
+         (rng.uniform(size=(batch, TINY_H, TINY_W)) > 0.6).astype(np.float32))
+        for _ in range(n)
+    ]
+
+
+def tiny_port(params, **kw):
+    """The port's tiny model on the CPU with the JAX `params`, every level
+    through the fused-block wrappers (fused_deep on)."""
+    kw = {"fused_blocks": True, "fused_deep": True, **kw}
+    port = TorchSwinWNet(**TINY, device="cpu", **kw)
+    port.load_state_dict(state_dict_from_jax(params), strict=True)
+    return port
+
+
+def flat(tree):
+    """Nested dict -> {"a/b/c": leaf}."""
+    out = {}
+    for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]:
+        out["/".join(str(k.key) for k in path)] = np.asarray(leaf)
+    return out

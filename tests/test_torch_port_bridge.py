@@ -10,7 +10,13 @@ import torch
 
 import _torch_port_helpers as h
 from swinwnet_tpu.compat import convert_state_dict
-from swinwnet_tpu_torch.compat import load_pth, sniff_error_matrix, state_dict_from_jax, unwrap_state_dict
+from swinwnet_tpu_torch.compat import (
+    jax_tree_from_state_dict,
+    load_pth,
+    sniff_error_matrix,
+    state_dict_from_jax,
+    unwrap_state_dict,
+)
 from swinwnet_tpu_torch.models import SwinWNet
 
 torch.set_num_threads(1)
@@ -61,3 +67,18 @@ def test_load_pth_unwraps_and_sniffs(tmp_path):
 
     single = SwinWNet(**{**h.CFG, "error_matrix": False}, device="cpu")
     assert not sniff_error_matrix(unwrap_state_dict({"model_state_dict": single.state_dict()}))
+
+
+def test_port_names_back_to_the_jax_tree_bit_exact():
+    """`jax_tree_from_state_dict` is the inverse of `state_dict_from_jax`:
+    parameters (and anything keyed like them: gradients, moments) come back
+    under the JAX names and layouts, bit for bit, without the index buffers."""
+    params = h.jax_params(seed=6)["params"]
+    port = SwinWNet(**h.CFG, device="cpu")
+    port.load_state_dict(state_dict_from_jax(params), strict=True)
+    for named in (port.state_dict(), dict(port.named_parameters())):
+        back = jax_tree_from_state_dict(named)
+        assert _paths(back) == _paths(params)
+        flat = dict(jax.tree_util.tree_flatten_with_path(back)[0])
+        for path, leaf in jax.tree_util.tree_flatten_with_path(params)[0]:
+            np.testing.assert_array_equal(flat[path], np.asarray(leaf), err_msg=str(path))

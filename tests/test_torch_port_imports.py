@@ -1,5 +1,6 @@
-"""The port stands alone: `swinwnet_tpu_torch` imports and builds a model with
-jax, flax, optax and the JAX package refused by an import hook; and its
+"""The port stands alone: every module of `swinwnet_tpu_torch` imports, and
+it builds a model, serves a request and trains the three stages, with jax,
+flax, optax, orbax and the JAX package refused by an import hook; and its
 entry points never quietly fall back to the CPU."""
 
 import subprocess
@@ -17,7 +18,7 @@ import importlib.abc, sys
 class Refuse(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
         top = name.split(".")[0]
-        if top in ("jax", "jaxlib", "flax", "optax", "swinwnet_tpu"):
+        if top in ("jax", "jaxlib", "flax", "optax", "orbax", "swinwnet_tpu"):
             raise ImportError(f"blocked import of {name}")
         return None
 
@@ -25,12 +26,23 @@ sys.meta_path.insert(0, Refuse())
 import torch
 torch.set_num_threads(1)
 import swinwnet_tpu_torch
-from swinwnet_tpu_torch import compat, core, models, ops, pipelines
+import importlib, pkgutil
+for info in pkgutil.walk_packages(swinwnet_tpu_torch.__path__, "swinwnet_tpu_torch."):
+    importlib.import_module(info.name)  # every module of the port, the new ones too
+from swinwnet_tpu_torch import compat, core, models, ops, pipelines, train, utils
+for name in ("ops.resize", "ops.norms", "ops.window", "ops.swin_block", "models.layers", "models.swin_wnet",
+             "train.losses", "train.schedule", "train.freeze", "train.trainers", "train.pipeline",
+             "utils.logging", "utils.checkpoint", "compat.torch_import", "pipelines.inference"):
+    assert "swinwnet_tpu_torch." + name in sys.modules, name
 m = models.SwinWNet(embed_dim=12, depths=(1, 1, 1, 1), num_heads=(3, 3, 3, 3),
                     error_matrix=True, fused_blocks=True, device="cpu")
 out = pipelines.SwinWNetInference(m)(torch.rand(1, 1, 20, 30))
 assert out.shape == (1, 2, 40, 60), out.shape
-bad = [n for n in sys.modules if n.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "swinwnet_tpu")]
+loader = [(torch.rand(2, 1, 20, 30).numpy() * 1e3, (torch.rand(2, 20, 30) > 0.5).float().numpy())] * 2
+_, hist = train.SwinWNetTrainingPipeline(m, loader, seg_epochs=1, sr_epochs=1, full_epochs=1,
+                                         warmup_epochs=1, verbose=False).run()
+assert set(hist) == {"stage1", "stage2", "stage3"}, hist
+bad = [n for n in sys.modules if n.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "swinwnet_tpu")]
 assert not bad, bad
 print("ok")
 """
