@@ -7,7 +7,8 @@
 2. holds each kernel against its plain PyTorch version on the card, in bf16
    and fp32: `fused_swin_block_cst` at the five shapes the serving pipeline
    gives it (token-major and channels-major), `fused_swin_block` (row-major)
-   at every signature the gate sends to it with fused_deep in fp32,
+   at every signature the gate sends to it with fused_deep in fp32 and with
+   one window, one fewer and one more than a CTA takes,
    `fused_swin_block_wide` at its four on-path shapes, each also at a window
    count no CTA size divides; and the differentiable block's gradients
    against autograd through the plain fp32 reference, per layout;
@@ -25,7 +26,8 @@
 5. the wide kernel's path: fused_layout="nmajor", one stage-1 step in fp32
    and one bf16 serving call, with launch counts and the plain comparison;
 6. times: per call, per training step, and per kernel and on-path shape the
-   kernel, its plain version and its bound.
+   kernel, its plain version and its bound; for the row-major kernel also
+   the same launch with [in, out]-stored weights and the plan of its CTAs.
 
 Exits non-zero on any failure. The last lines are one JSON line on the
 kernels, the card's name and power limit (nvidia-smi), and
@@ -273,9 +275,15 @@ def in_out_args(args):
 
 def check_rowmajor(dtype, gen):
     """`fused_swin_block` against `swin_block_rowmajor_plain` at the
-    fused_deep signatures, with the [Wt*N, 1] pad mask where the grid pads."""
+    fused_deep signatures, with the [Wt*N, 1] pad mask where the grid pads,
+    at a prime window count, and at C = 96 and 192 with one window and one
+    fewer and one more than a CTA takes."""
+    levels = ROW_LEVELS + [("odd count", 96, 6, (5, 5 * ODD_WINDOWS), 1)]
+    for C, nH in ((96, 3), (192, 12)):
+        WB = sb.kernel_plan(C, nH, dtype).WB
+        levels += [(f"{Wt} window{'s' * (Wt > 1)}", C, nH, (5, 5 * Wt), 1) for Wt in sorted({1, WB - 1, WB + 1} - {0})]
     worst = 0.0
-    for name, C, nH, grid, batch in ROW_LEVELS + [("odd count", 96, 6, (5, 5 * ODD_WINDOWS), 1)]:
+    for name, C, nH, grid, batch in levels:
         xt, args, mask_nw = level_args(C, nH, grid, batch, dtype, gen)
         args = in_out_args(args)
         x = xt.reshape(-1, C)
@@ -403,8 +411,11 @@ def profile_call(fn, what):
             if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
+    fused = [r for r in rows if "swin_block_kernel" in r[0]]
     print(f"  profile of {what}: wall {wall_ms:.1f} ms, device busy {busy:.1f} ms "
-          f"({100 * busy / wall_ms:.1f}%), {len(rows)} kernel kinds")
+          f"({100 * busy / wall_ms:.1f}%), {len(rows)} kernel kinds; swin_block_kernel "
+          f"{sum(r[1] for r in fused):.1f} ms in {sum(r[2] for r in fused)} launches, "
+          f"{100 * sum(r[1] for r in fused) / max(busy, 1e-9):.1f}% of the device time")
     for key, ms, count in rows[:12]:
         print(f"    {ms:8.3f} ms {100 * ms / max(busy, 1e-9):5.1f}%  x{count:<4d} {key[:90]}")
 
@@ -630,7 +641,10 @@ def time_new_levels(kernel, dtype, batch, levels, gen):
             # weight row of consecutive outputs) instead of nn.Linear's [out, in]
             stored_io = [a.contiguous() if i in (2, 5, 9, 11) else a for i, a in enumerate(args)]
             io_ms = cuda_ms(lambda: sb.fused_swin_block(x, *stored_io, num_heads=nH, pad_mask=mask), 10)
-            extra = f"  ([in, out]-stored weights {io_ms:.4f} ms)"
+            plan = sb.kernel_plan(C, nH, dtype)
+            extra = (f"  ([in, out]-stored weights {io_ms:.4f} ms; plan WB={plan.WB} G={plan.G} HC={plan.HC} "
+                     f"tile {plan.KC}x{plan.OT} 5x{plan.CN} a thread, {plan.threads} threads, "
+                     f"{plan.smem_bytes} B shared)")
         else:
             x, mask = xt.transpose(0, 1).contiguous(), None
             k_ms = cuda_ms(lambda: sb.fused_swin_block_wide(x, *args, num_heads=nH), 10)

@@ -30,12 +30,13 @@ the kernel of the layout, the backward differentiates `swin_block_reference`
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import subprocess
 import threading
 from pathlib import Path
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -61,17 +62,18 @@ def _nvcc() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
-def build(verbose: bool = False) -> Path:
-    """Compile csrc/swin_block.cu into BUILD_DIR (keyed by the source's hash)
-    unless that library exists; returns its path."""
-    src = _SRC.read_bytes()
-    key = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+def build(verbose: bool = False, defines: tuple = ()) -> Path:
+    """Compile csrc/swin_block.cu into BUILD_DIR (keyed by the hash of the
+    source and the flags) unless that library exists; returns its path.
+    `defines` are preprocessor names, e.g. ("SWIN_BLOCK_PHASES",)."""
+    flags = (*NVCC_FLAGS, *(f"-D{d}" for d in defines))
+    key = hashlib.sha1(_SRC.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
     lib = BUILD_DIR / f"libswin_block_{key}.so"
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []), "-o", str(tmp), str(_SRC)]
+    cmd = [_nvcc(), *flags, *(["-Xptxas", "-v"] if verbose else []), "-o", str(tmp), str(_SRC)]
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
@@ -81,21 +83,92 @@ def build(verbose: bool = False) -> Path:
     return lib
 
 
+def bind(path: Path):
+    """The built library at `path`, with swin_block_launch's signature set."""
+    lib = ctypes.CDLL(str(path))
+    P, L, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    lib.swin_block_launch.argtypes = (
+        [I, I, P, L, L, L, P, L, L, L, P, L, L]
+        + [P] * 13
+        + [I] * 15
+        + [P]
+    )
+    lib.swin_block_launch.restype = I
+    return lib
+
+
 def _load():
     global _lib
     with _lib_lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            P, L, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-            lib.swin_block_launch.argtypes = (
-                [I, I, P, L, L, L, P, L, L, L, P, L, L]
-                + [P] * 13
-                + [I] * 7
-                + [P]
-            )
-            lib.swin_block_launch.restype = I
-            _lib = lib
+            _lib = bind(build())
     return _lib
+
+
+SMEM_MAX = 232448  # bytes of shared memory a CTA can opt in to on sm_90 (227 KB)
+_THREADS = 256  # a CTA's threads: the kernel's __launch_bounds__, 255 registers each
+_ROWS_TARGET = 9600  # M * C a CTA aims at: two [M, C] fp32 buffers of ~38 KB
+_MAX_WB = 8  # at most 200 rows a CTA
+
+
+class KernelPlan(NamedTuple):
+    """How one CTA of the Swin-block kernel is cut (see csrc/swin_block.cu)."""
+
+    WB: int  # windows a CTA: M = 25 * WB rows
+    G: int  # heads per qkv/attention group
+    HC: int  # MLP hidden columns per chunk
+    KC: int  # k extent of a staged weight tile
+    OT: int  # output columns of a staged weight tile
+    CN: int  # output columns a thread holds (its register tile is 5 x CN)
+    threads: int
+    smem_bytes: int
+    lda: int  # row stride of the two [M, C] buffers, floats
+    ldq: int  # row stride of the qkv / hidden chunk, floats
+    offsets: tuple  # byte offsets of ys, os, the chunk and the weight ring
+
+
+def _smem_layout(C, hd, WB, G, HC, KC, OT, itemsize):
+    """(bytes, lda, ldq, offsets) of a plan, as the kernel lays it out: two
+    [M, C + 4] fp32 buffers, the [M, max(3 * G * hd, HC) + 4] fp32 chunk, two
+    stages of OT x (KC + 16 bytes) weights in the compute type."""
+    M = WINDOW_TOKENS * WB
+    lda, ldq = C + 4, max(3 * G * hd, HC) + 4
+    stage = OT * (KC + 16 // itemsize)
+    offsets = (0, 4 * M * lda, 8 * M * lda, 4 * M * (2 * lda + ldq))
+    return offsets[-1] + 2 * stage * itemsize, lda, ldq, offsets
+
+
+@functools.lru_cache(maxsize=None)
+def kernel_plan(C: int, num_heads: int, dtype: torch.dtype) -> KernelPlan:
+    """The kernel's plan for width C: as many windows a CTA as keep M * C near
+    9600 elements (4 at C = 96, 2 at C = 192, 1 from C = 384), an output tile
+    OT that gives every thread one 5 x CN register tile (5 * WB * OT / CN <=
+    threads) and cuts C in equal parts, the head group and the hidden chunk
+    no wider than OT, and the deepest weight tile that fits. Raises when
+    nothing fits the 227 KB of shared memory."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"no kernel for {dtype}")
+    if C <= 0 or C % num_heads or (C // num_heads) % 4:
+        raise ValueError(f"the kernel takes a head width that is a multiple of 4, got C={C}, num_heads={num_heads}")
+    itemsize = 4 if dtype == torch.float32 else 2
+    hd = C // num_heads
+    threads = _THREADS
+    for WB in range(max(1, min(_MAX_WB, _ROWS_TARGET // (WINDOW_TOKENS * C))), 0, -1):
+        row_groups = 5 * WB
+        for CN in (8, 4):
+            cap = CN * (threads // row_groups) // 8 * 8  # widest tile one round of threads covers
+            parts = -(-C // cap)  # output tiles that cut C
+            OT = min(-(-C // (8 * parts)) * 8, cap)
+            # a narrow width leaves most threads without a tile at 8 columns each
+            if row_groups * (OT // CN) * 2 >= threads:
+                break
+        G = max(g for g in range(1, num_heads + 1) if num_heads % g == 0 and (g == 1 or 3 * g * hd <= OT))
+        HC = max(h for h in range(4, 4 * C + 1, 4) if (4 * C) % h == 0 and (h <= OT or h == 4))
+        for KC in (32, 16, 8):
+            nbytes, lda, ldq, offsets = _smem_layout(C, hd, WB, G, HC, KC, OT, itemsize)
+            if nbytes <= SMEM_MAX:
+                return KernelPlan(WB, G, HC, KC, OT, CN, threads, nbytes, lda, ldq, offsets)
+    raise ValueError(f"no plan of the Swin-block kernel fits shared memory at C={C}, num_heads={num_heads}")
 
 
 def _ln(x32, s, b):
@@ -242,10 +315,9 @@ def _launch(entry, x_cnw, out_cnw, mask_nw, weights_oi, fp32_params, num_heads, 
         raise ValueError(f"no kernel for device {x_cnw.device}")
     if N != WINDOW_TOKENS:
         raise ValueError(f"the kernel takes windows of {WINDOW_TOKENS} tokens, got {N}")
-    if C % 4:
-        raise ValueError(f"the kernel takes C a multiple of 4, got {C}")
-    if any(w.data_ptr() % 16 for w in weights_oi):
-        raise ValueError("the kernel's weights must be 16-byte aligned")
+    plan = kernel_plan(C, num_heads, x_cnw.dtype)
+    if any(t.data_ptr() % 16 for t in (*weights_oi, *fp32_params)):
+        raise ValueError("the kernel's weights and fp32 parameters must be 16-byte aligned")
     orders = [_weight_order(w, name) for w, name in zip(weights_oi, _WEIGHT_NAMES[cst])]
     lib = _load()
     mask_ptr, smn, smw = None, 0, 0
@@ -263,7 +335,8 @@ def _launch(entry, x_cnw, out_cnw, mask_nw, weights_oi, fp32_params, num_heads, 
             rel_bias.data_ptr(), wproj.data_ptr(), bproj.data_ptr(),
             ln2_s.data_ptr(), ln2_b.data_ptr(), w1.data_ptr(), b1.data_ptr(),
             w2.data_ptr(), b2.data_ptr(),
-            *orders, C, num_heads, Wt, stream,
+            *orders, C, num_heads, Wt,
+            plan.WB, plan.G, plan.HC, plan.KC, plan.OT, plan.CN, plan.threads, plan.smem_bytes, stream,
         )
     if err != 0:
         raise RuntimeError(f"swin_block_launch failed with code {err} (C={C}, nH={num_heads}, Wt={Wt})")

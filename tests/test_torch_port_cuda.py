@@ -84,6 +84,35 @@ def test_rowmajor_kernel_matches_plain(cuda, C, nH, Wt, masked, dtype, linear_la
     assert (out.float() - ref.float()).abs().max().item() <= tol
 
 
+def _window_counts(C, nH, dtype):
+    """Window counts below, at and around the plan's windows per CTA, and a
+    prime that no count divides."""
+    WB = sb.kernel_plan(C, nH, dtype).WB
+    return sorted({1, max(1, WB - 1), WB, WB + 1, 1201})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("linear_layout", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C,nH", [(96, 3), (192, 12)])
+def test_rowmajor_kernel_at_ragged_window_counts(cuda, C, nH, dtype, linear_layout):
+    """The last CTA masks its own ragged edge: counts around the plan's
+    windows per CTA, weights stored either way. The wrapper always returns a
+    new tensor, so `out` aliasing `x`, which the kernel allows (it reads a
+    CTA's windows before it writes them), cannot be asked for here."""
+    args, g = _operands(cuda, C, nH, dtype, C + nH, linear_layout)
+    for Wt in _window_counts(C, nH, dtype):
+        x = torch.randn(Wt * N, C, generator=g).to(dtype).to(cuda)
+        mask = (torch.rand(Wt * N, 1, generator=g) > 0.3).float().to(cuda)
+        keep = x.clone()
+        out = sb.fused_swin_block(x, *args, num_heads=nH, pad_mask=mask)
+        torch.cuda.synchronize()
+        assert torch.equal(x, keep)
+        ref = sb.swin_block_rowmajor_plain(x, *args, num_heads=nH, pad_mask=mask)
+        tol = (1e-4 if dtype == torch.float32 else 2e-2) * ref.float().abs().max().item()
+        assert (out.float() - ref.float()).abs().max().item() <= tol, f"Wt={Wt}"
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("C,nH,Wt", [(48, 3, 300), (24, 3, 133), (12, 3, 1201), (96, 3, 61)])
