@@ -3,14 +3,19 @@
 
     python3 chip_smoke.py
 
-1. builds the fused Swin-block kernels (ops/csrc/swin_block.cu) with nvcc;
+1. builds the fused Swin-block kernels (ops/csrc/swin_block.cu) with nvcc and
+   checks in its SASS (cuobjdump) that the tensor-core body has HMMA
+   instructions and the fp32-FMA body none;
 2. holds each kernel against its plain PyTorch version on the card, in bf16
    and fp32: `fused_swin_block_cst` at the five shapes the serving pipeline
    gives it (token-major and channels-major), `fused_swin_block` (row-major)
    at every signature the gate sends to it with fused_deep in fp32 and with
    one window, one fewer and one more than a CTA takes,
    `fused_swin_block_wide` at its four on-path shapes, each also at a window
-   count no CTA size divides; and the differentiable block's gradients
+   count no CTA size divides; the bf16 tensor-core body of cst and wide at
+   every on-path shape with all weights stored [out, in] and all [in, out],
+   at one window fewer, as many and one more than its CTA takes, and with
+   the output over the input; and the differentiable block's gradients
    against autograd through the plain fp32 reference, per layout;
 3. serving: three [4, 2, 250, 480] requests through SwinWNetInference at the
    published width (embed 48, depths 2-2-2-2, heads 3-6-12-24, window 5) in
@@ -25,9 +30,11 @@
    gate's counts, frozen and trained parameters;
 5. the wide kernel's path: fused_layout="nmajor", one stage-1 step in fp32
    and one bf16 serving call, with launch counts and the plain comparison;
-6. times: per call, per training step, and per kernel and on-path shape the
-   kernel, its plain version and its bound; for the row-major kernel also
-   the same launch with [in, out]-stored weights and the plan of its CTAs.
+6. times: per call (with the serving call's device-busy share), per
+   training step, and per kernel and on-path shape the kernel, its plain
+   version and its bound; for cst and wide the plan, the body it takes, its
+   registers and CTAs an SM; for the row-major kernel also the same launch
+   with [in, out]-stored weights and the plan of its CTAs.
 
 Exits non-zero on any failure. The last lines are one JSON line on the
 kernels, the card's name and power limit (nvidia-smi), and
@@ -273,6 +280,94 @@ def in_out_args(args):
     return args
 
 
+def check_tensor_cores(gen):
+    """The bf16 tensor-core body (cst and wide, C <= 96) at every on-path
+    shape with all four weights stored [out, in] and all [in, out]; at one
+    window fewer, as many and one more than its CTA takes (cst with a random
+    pad mask); and with the output written over the input (the launcher
+    called on one tensor), which the kernel allows. Returns the largest
+    absolute error per entry."""
+    bf16 = torch.bfloat16
+    worst = {"cst": 0.0, "wide": 0.0}
+    shapes = [("cst", *lv[:4]) for lv in LEVELS] + [("wide", *lv) for lv in WIDE_LEVELS]
+    for entry, name, C, nH, grid in shapes:
+        plan = sb.kernel_plan(C, nH, bf16)
+        if plan.body == 0:
+            raise SystemExit(f"{entry} at C={C} nH={nH} does not take the tensor-core body: {plan}")
+        xt, args, mask = level_args(C, nH, grid, 1, bf16, gen)
+        ragged = sorted({plan.WB - 1, plan.WB, plan.WB + 1} - {0})
+        cases = [(grid, mask, "[out, in]"), (grid, mask, "[in, out]")]
+        cases += [((5, 5 * Wt), None, ("[out, in]", "[in, out]")[i % 2]) for i, Wt in enumerate(ragged)]
+        for g, m, order in cases:
+            if g != grid:
+                xt = torch.randn(n_windows(g, 1), N, C, generator=gen).to(bf16).cuda()
+                m = (torch.rand(N, xt.shape[0], generator=gen) > 0.3).float().cuda() if entry == "cst" else None
+            if entry == "cst":
+                a = list(args)
+                if order == "[in, out]":  # wqkv_t, w1_t, w2_t as views of [in, out] storage; wproj_t is
+                    for j in (2, 9, 11):
+                        a[j] = a[j].t().contiguous().t()
+                else:  # wproj_t as a view of [out, in] storage; the rest are
+                    a[5] = a[5].t().contiguous().t()
+                x = xt.permute(2, 1, 0)
+                out = sb.fused_swin_block_cst(x, *a, num_heads=nH, pad_mask=m)
+                ref = sb.swin_block_plain(x, *a, num_heads=nH, pad_mask=m)
+            else:
+                a = in_out_args(args)  # [in, out] views of [out, in] storage
+                if order == "[in, out]":
+                    a = [t.contiguous() if j in (2, 5, 9, 11) else t for j, t in enumerate(a)]
+                x = xt.transpose(0, 1).contiguous()
+                out = sb.fused_swin_block_wide(x, *a, num_heads=nH)
+                ref = sb.swin_block_wide_plain(x, *a, num_heads=nH)
+            torch.cuda.synchronize()
+            tag = (f"{entry:4s} {name:13s} C={C:3d} nH={nH:2d} Wt={xt.shape[0]:6d} mask={str(m is not None):5s} "
+                   f"weights {order} tensor cores")
+            worst[entry] = max(worst[entry], report(tag, out, ref, bf16))
+        # the output over the input: the launcher on one tensor
+        if entry == "cst":
+            x = xt.permute(2, 1, 0).clone()
+            ref = sb.swin_block_plain(x, *args, num_heads=nH, pad_mask=m)
+            w_oi = (args[2], args[5].t(), args[9], args[11])
+            fp = (args[0], args[1], args[3], args[6], args[7], args[8], args[10], args[12], args[4])
+            sb._launch(sb.fused_swin_block_cst, x, x, m, w_oi, fp, nH, True, True)
+        else:
+            a = in_out_args(args)
+            x = xt.transpose(0, 1).contiguous()
+            ref = sb.swin_block_wide_plain(x, *a, num_heads=nH)
+            w_oi = (a[2].t(), a[5].t(), a[9].t(), a[11].t())
+            fp = (a[0], a[1], a[3], a[6], a[7], a[8], a[10], a[12], a[4])
+            sb._launch(sb.fused_swin_block_wide, x.permute(2, 0, 1), x.permute(2, 0, 1), None, w_oi, fp, nH, True, False)
+        torch.cuda.synchronize()
+        tag = f"{entry:4s} {name:13s} C={C:3d} nH={nH:2d} Wt={xt.shape[0]:6d} output over the input, tensor cores"
+        worst[entry] = max(worst[entry], report(tag, x, ref, bf16))
+    return worst
+
+
+def sass_hmma(lib):
+    """HMMA instructions per kernel instance in the built library's SASS
+    (cuobjdump), as {mangled name: count}."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    res = subprocess.run([f"{CUDA_HOME}/bin/cuobjdump", "-sass", str(lib)], capture_output=True, text=True, check=True)
+    counts = {}
+    for part in res.stdout.split("Function : ")[1:]:
+        name = part.split(None, 1)[0]
+        counts[name] = counts.get(name, 0) + part.count("HMMA")
+    return counts
+
+
+def check_sass(lib):
+    """The tensor-core body's SASS has HMMA instructions; the fp32-FMA
+    body's instances have none."""
+    counts = sass_hmma(lib)
+    mma = {k: v for k, v in counts.items() if "swin_block_mma_kernel" in k}
+    fma = {k: v for k, v in counts.items() if "swin_block_kernel" in k}
+    print(f"  SASS: tensor-core body HMMA {list(mma.values())}; fp32-FMA body instances HMMA "
+          f"{sorted(fma.values())} ({len(fma)} instances)")
+    if not mma or min(mma.values()) == 0 or max(fma.values(), default=0) > 0:
+        raise SystemExit("the tensor-core body has no HMMA, or the fp32-FMA body has some")
+
+
 def check_rowmajor(dtype, gen):
     """`fused_swin_block` against `swin_block_rowmajor_plain` at the
     fused_deep signatures, with the [Wt*N, 1] pad mask where the grid pads,
@@ -280,7 +375,7 @@ def check_rowmajor(dtype, gen):
     fewer and one more than a CTA takes."""
     levels = ROW_LEVELS + [("odd count", 96, 6, (5, 5 * ODD_WINDOWS), 1)]
     for C, nH in ((96, 3), (192, 12)):
-        WB = sb.kernel_plan(C, nH, dtype).WB
+        WB = sb.kernel_plan(C, nH, dtype, round_qkv=False).WB
         levels += [(f"{Wt} window{'s' * (Wt > 1)}", C, nH, (5, 5 * Wt), 1) for Wt in sorted({1, WB - 1, WB + 1} - {0})]
     worst = 0.0
     for name, C, nH, grid, batch in levels:
@@ -396,9 +491,12 @@ def serve(dtype, batch, n_calls, rng, profile=False, **model_kw):
     return first, call_ms, per_call, total, plain, plain_ms
 
 
+PROFILES = {}  # what -> (wall ms, device-busy ms) of profile_call
+
+
 def profile_call(fn, what):
     """Device time by kernel over one call of `fn` (torch.profiler), and the
-    share of its wall time the device was busy."""
+    share of its wall time the device was busy (kept in PROFILES)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
@@ -411,9 +509,10 @@ def profile_call(fn, what):
             if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
-    fused = [r for r in rows if "swin_block_kernel" in r[0]]
+    PROFILES[what] = (wall_ms, busy)
+    fused = [r for r in rows if "swin_block_kernel" in r[0] or "swin_block_mma_kernel" in r[0]]
     print(f"  profile of {what}: wall {wall_ms:.1f} ms, device busy {busy:.1f} ms "
-          f"({100 * busy / wall_ms:.1f}%), {len(rows)} kernel kinds; swin_block_kernel "
+          f"({100 * busy / wall_ms:.1f}%), {len(rows)} kernel kinds; the Swin-block kernels "
           f"{sum(r[1] for r in fused):.1f} ms in {sum(r[2] for r in fused)} launches, "
           f"{100 * sum(r[1] for r in fused) / max(busy, 1e-9):.1f}% of the device time")
     for key, ms, count in rows[:12]:
@@ -602,6 +701,17 @@ def train_main_path(rng):
     return records, total
 
 
+def plan_text(C, nH, dtype, round_qkv=True):
+    """A launch's plan, which body it takes, its registers and CTAs an SM."""
+    p = sb.kernel_plan(C, nH, dtype, round_qkv)
+    regs, ctas = sb.kernel_info(C, nH, dtype, round_qkv)
+    body = ("fp32-FMA body", "tensor cores, two weight slots", "tensor cores, weights resident")[p.body]
+    rows = f"{p.mp} rows padded" if p.body else f"tile {p.KC}x{p.OT} 5x{p.CN} a thread"
+    planned = f" (planned {p.min_ctas})" if p.body else ""
+    return (f"{body}: WB={p.WB} G={p.G} HC={p.HC} {rows}, {p.smem_bytes} B shared, {regs} registers, "
+            f"{ctas} CTAs an SM{planned}")
+
+
 def time_levels(dtype, gen):
     """Per level at B=4: kernel ms (both layouts), plain ms, bound ms.
     Returns the sums over one pipeline call's launches."""
@@ -616,7 +726,8 @@ def time_levels(dtype, gen):
         t_ops, t_bytes = flops / PEAK_OPS[dtype] * 1e3, nbytes / HBM_BPS * 1e3
         print(f"  cst  {name:13s} C={C:3d} nH={nH:2d} Wt={x_tok.shape[2]:6d} x{per_call}/call  "
               f"kernel token-major {k_tok:.4f} ms  channels-major {k_cm:.4f} ms  plain {p_ms:.4f} ms  "
-              f"bound {max(t_ops, t_bytes):.4f} ms by {'operations' if t_ops > t_bytes else 'bytes'}")
+              f"bound {max(t_ops, t_bytes):.4f} ms by {'operations' if t_ops > t_bytes else 'bytes'}  "
+              f"({plan_text(C, nH, dtype)})")
         tot["ms"] += per_call * k_tok
         tot["plain_ms"] += per_call * p_ms
         tot["flops"] += per_call * flops
@@ -649,7 +760,7 @@ def time_new_levels(kernel, dtype, batch, levels, gen):
             x, mask = xt.transpose(0, 1).contiguous(), None
             k_ms = cuda_ms(lambda: sb.fused_swin_block_wide(x, *args, num_heads=nH), 10)
             p_ms = cuda_ms(lambda: sb.swin_block_wide_plain(x, *args, num_heads=nH), 3)
-            extra = ""
+            extra = f"  ({plan_text(C, nH, dtype)})"
         flops, nbytes = block_cost(C, nH, xt.shape[0], dtype, mask is not None)
         t_ops, t_bytes = flops / PEAK_OPS[dtype] * 1e3, nbytes / HBM_BPS * 1e3
         print(f"  {kernel:4s} {name:13s} C={C:3d} nH={nH:2d} Wt={xt.shape[0]:6d} {str(dtype)[6:]:8s} x{per}  "
@@ -691,6 +802,7 @@ def main() -> int:
 
     lib = sb.build(verbose=True)
     print(f"[1] built {lib.name} in {time.perf_counter() - t_start:.2f} s")
+    check_sass(lib)
 
     gen = torch.Generator().manual_seed(SEED)
     bf16, fp32 = torch.bfloat16, torch.float32
@@ -698,6 +810,9 @@ def main() -> int:
     err_cst = {dt: check_kernel(dt, gen) for dt in (bf16, fp32)}
     err_row = {dt: check_rowmajor(dt, gen) for dt in (bf16, fp32)}
     err_wide = {dt: check_wide(dt, gen) for dt in (bf16, fp32)}
+    err_tc = check_tensor_cores(gen)
+    err_cst[bf16] = max(err_cst[bf16], err_tc["cst"])
+    err_wide[bf16] = max(err_wide[bf16], err_tc["wide"])
     check_gradients(gen)
 
     rng = np.random.default_rng(SEED)
@@ -746,8 +861,10 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     print(f"[6] times on {smi}")
     mean_ms = float(np.mean(call_ms))
+    wall, busy = PROFILES["one serving call"]
     print(f"  serving bf16 B={B}: per call {', '.join(f'{t:.1f}' for t in call_ms)} ms (mean {mean_ms:.1f} ms, "
-          f"{B / mean_ms * 1e3:.2f} images/s); through the plain versions {plain_ms:.1f} ms")
+          f"{B / mean_ms * 1e3:.2f} images/s); through the plain versions {plain_ms:.1f} ms; under the profiler "
+          f"the device was busy {busy:.1f} of {wall:.1f} ms ({100 * busy / wall:.1f}%)")
     print(f"  serving fp32 B=1: per call {', '.join(f'{t:.1f}' for t in ms32)} ms; through the plain versions {pms32:.1f} ms")
     print(f"  serving bf16 B={B} with fused_layout='nmajor': {ms_w[0]:.1f} ms; through the plain versions {pms_w:.1f} ms")
     for kind, ms in step_ms.items():

@@ -2,21 +2,28 @@
 """Where a CTA of the port's fused Swin-block kernel spends its cycles, on one
 CUDA card.
 
-    python3 scripts/swin_block_phases.py
+    python3 scripts/swin_block_phases.py             # row-major, fp32
+    python3 scripts/swin_block_phases.py --serving   # and cst and wide, bf16
 
 Builds swinwnet_tpu_torch/ops/csrc/swin_block.cu with -DSWIN_BLOCK_PHASES, in
 which thread 0 of every CTA adds the clock64() cycles of each phase to a
-device array, and runs the row-major entry (`fused_swin_block`) in fp32 at
-the six shapes a training step with fused_deep gives it at B = 8, weights
-stored [out, in] as the models pass them. Per shape it prints the kernel's
-time, its plan and the mean cycles per CTA of each phase, the products'
-cycles split into copy start, copy wait, barrier, FMA loop and epilogue, and
-the FFMA rate inside the loops. The counters slow the kernel by a few
-percent; chip_smoke.py times the kernel without them.
+device array. Runs the row-major entry (`fused_swin_block`) in fp32 at the
+six shapes a training step with fused_deep gives it at B = 8, weights stored
+[out, in] as the models pass them; with --serving also the channels-major
+entry (`fused_swin_block_cst`) at the five shapes of a bf16 serving call and
+the wide entry (`fused_swin_block_wide`) at its four, B = 4, as the models
+pass them. Per shape it prints the kernel's time, its plan, its registers
+and CTAs an SM (the occupancy calculator), and the mean cycles per window
+batch (one batch a CTA, or several for a CTA that walks batches) of each
+phase, the products' cycles split into copy start, copy wait, barrier, the
+FMA or MMA loop and epilogue; for the fp32-FMA body also the FFMA rate
+inside the loops. The counters slow the kernel by a few percent;
+chip_smoke.py times the kernel without them.
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import subprocess
 import sys
@@ -31,9 +38,43 @@ from swinwnet_tpu_torch.ops import swin_block as sb  # noqa: E402
 
 PHASES = ["load", "LN1", "qkv", "attention", "proj", "residual", "LN2", "fc1", "fc2", "store"]
 IN_PRODUCTS = ["copy start", "copy wait", "barrier", "FMA loop", "epilogue"]
+IN_MMA_PRODUCTS = ["copy start", "copy wait", "barrier", "MMA loop", "epilogue"]
+
+
+def measure(lib, counters, tag, name, run, C, nH, Wt, dtype, round_qkv):
+    """Time `run` (one launch of an entry), then read one launch's counters
+    and print them per window batch."""
+    ms = cs.cuda_ms(run, 10)
+    if lib.swin_block_phases(None, 1):
+        raise SystemExit("could not clear the phase counters")
+    run()
+    if lib.swin_block_phases(counters, 0):
+        raise SystemExit("could not read the phase counters")
+    plan = sb.kernel_plan(C, nH, dtype, round_qkv)
+    regs, ctas_sm = sb.kernel_info(C, nH, dtype, round_qkv, lib)
+    body = getattr(plan, "body", 0)
+    batches = -(-Wt // plan.WB)
+    per = [c / batches for c in counters]
+    total = sum(per[:10])
+    print(f"  {tag:4s} {name:13s} C={C:3d} nH={nH:2d} Wt={Wt:5d} {ms:.4f} ms  "
+          f"WB={plan.WB} G={plan.G} HC={plan.HC} {plan.smem_bytes} B shared, {'mma' if body else 'fma'} body, "
+          f"{regs} registers, {ctas_sm} CTAs an SM, {batches} window batches, {total:.0f} cycles a batch")
+    print("    " + "  ".join(f"{n} {100 * c / total:.1f}%" for n, c in zip(PHASES, per)))
+    labels = IN_MMA_PRODUCTS if body else IN_PRODUCTS
+    print("    in the products: " + "  ".join(f"{n} {100 * c / total:.1f}%" for n, c in zip(labels, per[10:])))
+    if not body:
+        # FFMAs one warp executes in the loops of a CTA: 12 C^2 per row, over the
+        # threads that hold a register tile; two such warps share a scheduler
+        tiles = 5 * plan.WB * (plan.OT // plan.CN)
+        ffma_per_thread = 25 * plan.WB * 12 * C * C / tiles
+        print(f"    FFMA per cycle and warp inside the loops {ffma_per_thread / per[13]:.3f} "
+              f"({plan.threads // 128} warps a scheduler)")
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--serving", action="store_true", help="also the bf16 cst and wide shapes of a serving call")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("swin_block_phases: no CUDA device", file=sys.stderr)
         return 1
@@ -43,36 +84,30 @@ def main() -> int:
     sb._lib = lib  # the wrappers launch the instrumented build
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    print(f"cycles per CTA by phase, fp32, B={cs.TRAIN_B}, on {smi}")
     gen = torch.Generator().manual_seed(cs.SEED)
     counters = (ctypes.c_ulonglong * 16)()
+    print(f"cycles per window batch by phase, row-major, fp32, B={cs.TRAIN_B}, on {smi}")
     for name, C, nH, grid, _ in cs.ROW_LEVELS:
-        xt, args, mask_nw = cs.level_args(C, nH, grid, cs.TRAIN_B, torch.float32, gen)
-        args = cs.in_out_args(args)
+        xt, a, mask_nw = cs.level_args(C, nH, grid, cs.TRAIN_B, torch.float32, gen)
+        a = cs.in_out_args(a)
         x = xt.reshape(-1, C)
         mask = None if mask_nw is None else mask_nw.t().reshape(-1, 1)
-        run = lambda: sb.fused_swin_block(x, *args, num_heads=nH, pad_mask=mask)
-        ms = cs.cuda_ms(run, 10)
-        if lib.swin_block_phases(None, 1):
-            raise SystemExit("could not clear the phase counters")
-        run()
-        if lib.swin_block_phases(counters, 0):
-            raise SystemExit("could not read the phase counters")
-        plan = sb.kernel_plan(C, nH, torch.float32)
-        Wt = xt.shape[0]
-        ctas = -(-Wt // plan.WB)
-        per_cta = [c / ctas for c in counters]
-        total = sum(per_cta[:10])
-        # FFMAs one warp executes in the loops of a CTA: 12 C^2 per row, over the
-        # threads that hold a register tile; two such warps share a scheduler
-        tiles = 5 * plan.WB * (plan.OT // plan.CN)
-        ffma_per_thread = 25 * plan.WB * 12 * C * C / tiles
-        print(f"  {name:13s} C={C:3d} nH={nH:2d} Wt={Wt:5d} {ms:.4f} ms  WB={plan.WB} G={plan.G} tile "
-              f"{plan.KC}x{plan.OT} {plan.smem_bytes} B shared, {ctas} CTAs, {total:.0f} cycles a CTA")
-        print("    " + "  ".join(f"{n} {100 * c / total:.1f}%" for n, c in zip(PHASES, per_cta)))
-        print("    in the products: " + "  ".join(f"{n} {100 * c / total:.1f}%" for n, c in zip(IN_PRODUCTS, per_cta[10:])))
-        print(f"    FFMA per cycle and warp inside the loops {ffma_per_thread / per_cta[13]:.3f} "
-              f"({plan.threads // 128} warps a scheduler)")
+        measure(lib, counters, "row", name, lambda: sb.fused_swin_block(x, *a, num_heads=nH, pad_mask=mask),
+                C, nH, xt.shape[0], torch.float32, False)
+    if not args.serving:
+        return 0
+    print(f"cycles per window batch by phase, cst and wide, bf16, B={cs.B}, on {smi}")
+    for name, C, nH, grid, _ in cs.LEVELS:
+        xt, a, mask = cs.level_args(C, nH, grid, cs.B, torch.bfloat16, gen)
+        x = xt.permute(2, 1, 0)  # the token-major view the models pass
+        measure(lib, counters, "cst", name, lambda: sb.fused_swin_block_cst(x, *a, num_heads=nH, pad_mask=mask),
+                C, nH, xt.shape[0], torch.bfloat16, True)
+    for name, C, nH, grid in cs.WIDE_LEVELS:
+        xt, a, _ = cs.level_args(C, nH, grid, cs.B, torch.bfloat16, gen)
+        a = cs.in_out_args(a)
+        x = xt.transpose(0, 1).contiguous()
+        measure(lib, counters, "wide", name, lambda: sb.fused_swin_block_wide(x, *a, num_heads=nH),
+                C, nH, xt.shape[0], torch.bfloat16, True)
     return 0
 
 

@@ -90,10 +90,12 @@ def bind(path: Path):
     lib.swin_block_launch.argtypes = (
         [I, I, P, L, L, L, P, L, L, L, P, L, L]
         + [P] * 13
-        + [I] * 15
+        + [I] * 17
         + [P]
     )
     lib.swin_block_launch.restype = I
+    lib.swin_block_info.argtypes = [I] * 7 + [ctypes.POINTER(I)] * 2
+    lib.swin_block_info.restype = I
     return lib
 
 
@@ -122,9 +124,14 @@ class KernelPlan(NamedTuple):
     CN: int  # output columns a thread holds (its register tile is 5 x CN)
     threads: int
     smem_bytes: int
-    lda: int  # row stride of the two [M, C] buffers, floats
-    ldq: int  # row stride of the qkv / hidden chunk, floats
+    lda: int  # row stride of the two [M, C] buffers, floats (bf16 elements in a tensor-core plan)
+    ldq: int  # row stride of the qkv / hidden chunk, floats (bf16 elements in a tensor-core plan)
     offsets: tuple  # byte offsets of ys, os, the chunk and the weight ring
+    # (tensor-core plan: of the trunk, the two operand buffers, the chunk and the weights)
+    body: int = 0  # 0: the fp32-FMA body; 1: tensor cores, two weight slots; 2: tensor cores, weights resident
+    mp: int = 0  # tensor-core plan: rows a CTA padded to 16
+    ldt: int = 0  # tensor-core plan: row stride of the fp32 trunk, floats
+    min_ctas: int = 1  # tensor-core plan: CTAs an SM it counts on (2 or 3: 128 or 80 registers a thread)
 
 
 def _smem_layout(C, hd, WB, G, HC, KC, OT, itemsize):
@@ -138,9 +145,85 @@ def _smem_layout(C, hd, WB, G, HC, KC, OT, itemsize):
     return offsets[-1] + 2 * stage * itemsize, lda, ldq, offsets
 
 
+# bytes of shared memory a CTA may take for two or three to share an SM's 228 KB (1 KB each reserved)
+SMEM_CTAS = {2: 115712, 3: 76800}
+MMA_MAX_C = 96  # the widest bf16 level the tensor-core body takes (the bf16 gate's cap)
+
+
+def _round_up(n, m):
+    return -(-n // m) * m
+
+
+def _odd_units(n):
+    """The least bf16 row stride >= n that is an odd number of 16-byte units."""
+    n = _round_up(n, 8)
+    return n if (n // 8) % 2 else n + 8
+
+
+def mma_jobs(C, num_heads, G, HC):
+    """(K, O) of the products of a window batch in the tensor-core body, in
+    order: a qkv product per head group, proj, then fc1 and fc2 per hidden
+    chunk."""
+    hd = C // num_heads
+    return ([(C, 3 * G * hd)] * (num_heads // G) + [(C, C)] + [(C, HC), (HC, C)] * (4 * C // HC))
+
+
+def mma_weight_elems(K, O):
+    """bf16 elements a product's staged weights take: K padded to 16, O to
+    8, rows an odd number of 16-byte units, in either order."""
+    Kp, Op = _round_up(K, 16), _round_up(O, 8)
+    return max(Op * _odd_units(Kp), Kp * _odd_units(Op))
+
+
+def _mma_layout(C, num_heads, WB, G, HC, body):
+    """(bytes, mp, ldt, ldb, ldh, offsets) of a tensor-core plan, as the
+    kernel lays it out (mma_layout in the .cu): the fp32 trunk [M, C + 4], two
+    bf16 operand buffers [mp, ldb], the bf16 chunk [mp, ldh], and the weights:
+    every product's (body 2) or two slots of the largest (body 1)."""
+    M = WINDOW_TOKENS * WB
+    mp, ldt = _round_up(M, 16), C + 4
+    ldb = _odd_units(_round_up(C, 16))
+    ldh = _odd_units(max(_round_up(3 * G * (C // num_heads), 8), HC))
+    sizes = [mma_weight_elems(K, O) for K, O in mma_jobs(C, num_heads, G, HC)]
+    welems = sum(sizes) if body == 2 else 2 * max(sizes)
+    offsets = (0, 4 * M * ldt)
+    offsets += (offsets[-1] + 2 * mp * ldb,)
+    offsets += (offsets[-1] + 2 * mp * ldb,)
+    offsets += (offsets[-1] + 2 * mp * ldh,)
+    return offsets[-1] + 2 * welems, mp, ldt, ldb, ldh, offsets
+
+
+def _mma_plan(C, num_heads):
+    """The tensor-core body's plan: hidden chunks of the widest multiple of
+    16 up to max(C, 48) that cuts 4C, head groups whose q|k|v are no wider,
+    all weights resident at C <= 48 (body 2; else two slots, body 1, which
+    needs C a multiple of 16: the slots are reused, so no K may have a pad),
+    and the windows a CTA and CTAs an SM (2 or 3, as shared memory allows) that keep
+    the most useful rows on an SM: CTAs * M * (M / Mp), Mp being M padded to
+    16 (fewer CTAs, then fewer windows, on a tie)."""
+    hd = C // num_heads
+    HC = max(h for h in range(16, 4 * C + 1, 16) if (4 * C) % h == 0 and h <= max(C, 48))
+    G = max(g for g in range(1, num_heads + 1) if num_heads % g == 0 and 3 * g * hd <= max(HC, 3 * hd))
+    body = 2 if C <= 48 else 1
+    best, best_score = None, 0.0
+    for ctas in (2, 3):
+        for WB in range(1, _MAX_WB + 1):
+            nbytes, mp, ldt, ldb, ldh, offsets = _mma_layout(C, num_heads, WB, G, HC, body)
+            M = WINDOW_TOKENS * WB
+            score = ctas * M * M / mp
+            if nbytes <= SMEM_CTAS[ctas] and score > best_score:
+                best_score = score
+                best = KernelPlan(WB, G, HC, 16, 8, 0, _THREADS, nbytes, ldb, ldh, offsets, body, mp, ldt, ctas)
+    if best is None:
+        raise ValueError(f"no tensor-core plan fits two CTAs an SM at C={C}, num_heads={num_heads}")
+    return best
+
+
 @functools.lru_cache(maxsize=None)
-def kernel_plan(C: int, num_heads: int, dtype: torch.dtype) -> KernelPlan:
-    """The kernel's plan for width C: as many windows a CTA as keep M * C near
+def kernel_plan(C: int, num_heads: int, dtype: torch.dtype, round_qkv: bool = True) -> KernelPlan:
+    """The kernel's plan for width C. bf16 with qkv rounded (the cst and wide
+    entries) at C <= 96 takes the tensor-core body (`_mma_plan`). Any other
+    launch takes the fp32-FMA body: as many windows a CTA as keep M * C near
     9600 elements (4 at C = 96, 2 at C = 192, 1 from C = 384), an output tile
     OT that gives every thread one 5 x CN register tile (5 * WB * OT / CN <=
     threads) and cuts C in equal parts, the head group and the hidden chunk
@@ -150,6 +233,8 @@ def kernel_plan(C: int, num_heads: int, dtype: torch.dtype) -> KernelPlan:
         raise TypeError(f"no kernel for {dtype}")
     if C <= 0 or C % num_heads or (C // num_heads) % 4:
         raise ValueError(f"the kernel takes a head width that is a multiple of 4, got C={C}, num_heads={num_heads}")
+    if dtype == torch.bfloat16 and round_qkv and (C <= 48 or (C <= MMA_MAX_C and C % 16 == 0)):
+        return _mma_plan(C, num_heads)
     itemsize = 4 if dtype == torch.float32 else 2
     hd = C // num_heads
     threads = _THREADS
@@ -169,6 +254,20 @@ def kernel_plan(C: int, num_heads: int, dtype: torch.dtype) -> KernelPlan:
             if nbytes <= SMEM_MAX:
                 return KernelPlan(WB, G, HC, KC, OT, CN, threads, nbytes, lda, ldq, offsets)
     raise ValueError(f"no plan of the Swin-block kernel fits shared memory at C={C}, num_heads={num_heads}")
+
+
+def kernel_info(C: int, num_heads: int, dtype: torch.dtype, round_qkv: bool = True, lib=None):
+    """(registers a thread, CTAs an SM) of the kernel instance that the plan
+    of (C, num_heads, dtype, round_qkv) launches, from the built library
+    (`lib`, else the one the wrappers use); needs a CUDA device."""
+    plan = kernel_plan(C, num_heads, dtype, round_qkv)
+    lib = lib or _load()
+    regs, ctas = ctypes.c_int(0), ctypes.c_int(0)
+    err = lib.swin_block_info(int(dtype == torch.bfloat16), int(round_qkv), plan.body, plan.min_ctas, plan.CN,
+                              plan.threads, plan.smem_bytes, ctypes.byref(regs), ctypes.byref(ctas))
+    if err != 0:
+        raise RuntimeError(f"swin_block_info failed with code {err} (C={C}, nH={num_heads})")
+    return regs.value, ctas.value
 
 
 def _ln(x32, s, b):
@@ -315,7 +414,7 @@ def _launch(entry, x_cnw, out_cnw, mask_nw, weights_oi, fp32_params, num_heads, 
         raise ValueError(f"no kernel for device {x_cnw.device}")
     if N != WINDOW_TOKENS:
         raise ValueError(f"the kernel takes windows of {WINDOW_TOKENS} tokens, got {N}")
-    plan = kernel_plan(C, num_heads, x_cnw.dtype)
+    plan = kernel_plan(C, num_heads, x_cnw.dtype, round_qkv)
     if any(t.data_ptr() % 16 for t in (*weights_oi, *fp32_params)):
         raise ValueError("the kernel's weights and fp32 parameters must be 16-byte aligned")
     orders = [_weight_order(w, name) for w, name in zip(weights_oi, _WEIGHT_NAMES[cst])]
@@ -336,7 +435,8 @@ def _launch(entry, x_cnw, out_cnw, mask_nw, weights_oi, fp32_params, num_heads, 
             ln2_s.data_ptr(), ln2_b.data_ptr(), w1.data_ptr(), b1.data_ptr(),
             w2.data_ptr(), b2.data_ptr(),
             *orders, C, num_heads, Wt,
-            plan.WB, plan.G, plan.HC, plan.KC, plan.OT, plan.CN, plan.threads, plan.smem_bytes, stream,
+            plan.WB, plan.G, plan.HC, plan.KC, plan.OT, plan.CN, plan.threads, plan.smem_bytes, plan.body,
+            plan.min_ctas, stream,
         )
     if err != 0:
         raise RuntimeError(f"swin_block_launch failed with code {err} (C={C}, nH={num_heads}, Wt={Wt})")

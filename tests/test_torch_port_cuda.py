@@ -84,10 +84,11 @@ def test_rowmajor_kernel_matches_plain(cuda, C, nH, Wt, masked, dtype, linear_la
     assert (out.float() - ref.float()).abs().max().item() <= tol
 
 
-def _window_counts(C, nH, dtype):
+def _window_counts(C, nH, dtype, round_qkv=False):
     """Window counts below, at and around the plan's windows per CTA, and a
-    prime that no count divides."""
-    WB = sb.kernel_plan(C, nH, dtype).WB
+    prime that no count divides (the row-major entry's plan, or with
+    `round_qkv` that of cst and wide)."""
+    WB = sb.kernel_plan(C, nH, dtype, round_qkv).WB
     return sorted({1, max(1, WB - 1), WB, WB + 1, 1201})
 
 
@@ -159,3 +160,77 @@ def test_autodiff_gradients_match_the_fp32_reference(cuda, layout):
     want = torch.autograd.grad(ref, b, ct)
     for p, q in zip(got, want):
         assert (p - q).abs().max().item() <= 1e-6 * q.abs().max().item()
+
+
+def _cst_operands(cuda, C, nH, seed, stored):
+    """bf16 operands of the cst entry with all four weights stored [out, in]
+    or all [in, out] (`stored`), as views in the entry's orientation."""
+    g = torch.Generator().manual_seed(seed)
+    A = lambda *s: torch.randn(*s, generator=g) * 0.05
+    oi = [A(3 * C, C), A(C, C), A(4 * C, C), A(C, 4 * C)]  # [out, in]
+    oi = [m.to(torch.bfloat16).to(cuda) for m in oi]
+    if stored == "in_out":
+        oi = [m.t().contiguous().t() for m in oi]
+    v = [torch.rand(C, generator=g) + 0.5, A(C), A(3 * C), A(nH, N, N), A(C),
+         torch.rand(C, generator=g) + 0.5, A(C), A(4 * C), A(C)]
+    v = [t.to(cuda) for t in v]
+    # the cst entry takes wqkv_t, w1_t, w2_t as [out, in] and wproj_t as [in, out]
+    return [v[0], v[1], oi[0], v[2], v[3], oi[1].t(), v[4], v[5], v[6], oi[2], v[7], oi[3], v[8]], g
+
+
+# (C, nH): head widths 4, 8, 16 and 32 on the bf16 serving levels
+TC_SHAPES = [(12, 3), (24, 3), (48, 3), (96, 6), (96, 3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stored", ["out_in", "in_out"])
+@pytest.mark.parametrize("C,nH", TC_SHAPES)
+def test_tensor_core_cst_at_ragged_window_counts(cuda, C, nH, stored):
+    """The bf16 tensor-core body through the cst entry, with a pad mask, at
+    window counts below, at and around its windows per CTA and at a prime,
+    weights stored either way."""
+    args, g = _cst_operands(cuda, C, nH, C + nH, stored)
+    assert sb.kernel_plan(C, nH, torch.bfloat16).body != 0
+    for Wt in _window_counts(C, nH, torch.bfloat16, round_qkv=True):
+        x = torch.randn(Wt, N, C, generator=g).to(torch.bfloat16).to(cuda).permute(2, 1, 0)
+        mask = (torch.rand(N, Wt, generator=g) > 0.3).float().to(cuda)
+        keep = x.clone()
+        out = sb.fused_swin_block_cst(x, *args, num_heads=nH, pad_mask=mask)
+        torch.cuda.synchronize()
+        assert torch.equal(x, keep)
+        ref = sb.swin_block_plain(x, *args, num_heads=nH, pad_mask=mask)
+        tol = 2e-2 * ref.float().abs().max().item()
+        assert (out.float() - ref.float()).abs().max().item() <= tol, f"Wt={Wt}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("linear_layout", [False, True])
+@pytest.mark.parametrize("C,nH", TC_SHAPES)
+def test_tensor_core_wide_at_ragged_window_counts(cuda, C, nH, linear_layout):
+    """The bf16 tensor-core body through the wide entry at window counts
+    around its windows per CTA and at a prime, weights stored either way."""
+    args, g = _operands(cuda, C, nH, torch.bfloat16, C + nH, linear_layout)
+    for Wt in _window_counts(C, nH, torch.bfloat16, round_qkv=True):
+        x = torch.randn(N, Wt, C, generator=g).to(torch.bfloat16).to(cuda)
+        out = sb.fused_swin_block_wide(x, *args, num_heads=nH)
+        torch.cuda.synchronize()
+        ref = sb.swin_block_wide_plain(x, *args, num_heads=nH)
+        tol = 2e-2 * ref.float().abs().max().item()
+        assert (out.float() - ref.float()).abs().max().item() <= tol, f"Wt={Wt}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,nH", TC_SHAPES)
+def test_tensor_core_output_may_alias_the_input(cuda, C, nH):
+    """The launcher with the output on the input's memory (the wrappers
+    always allocate): a CTA reads its windows before it writes them."""
+    args, g = _cst_operands(cuda, C, nH, C + nH, "out_in")
+    Wt = 1201
+    x = torch.randn(Wt, N, C, generator=g).to(torch.bfloat16).to(cuda).permute(2, 1, 0)
+    mask = (torch.rand(N, Wt, generator=g) > 0.3).float().to(cuda)
+    ref = sb.swin_block_plain(x, *args, num_heads=nH, pad_mask=mask)
+    weights_oi = (args[2], args[5].t(), args[9], args[11])
+    fp32 = (args[0], args[1], args[3], args[6], args[7], args[8], args[10], args[12], args[4])
+    sb._launch(sb.fused_swin_block_cst, x, x, mask, weights_oi, fp32, nH, True, True)
+    torch.cuda.synchronize()
+    assert (x.float() - ref.float()).abs().max().item() <= 2e-2 * ref.float().abs().max().item()
