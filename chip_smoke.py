@@ -8,8 +8,9 @@
    instructions and the fp32-FMA body none;
 2. holds each kernel against its plain PyTorch version on the card, in bf16
    and fp32: `fused_swin_block_cst` at the five shapes the serving pipeline
-   gives it (token-major and channels-major), `fused_swin_block` (row-major)
-   at every signature the gate sends to it with fused_deep in fp32 and with
+   gives it and the five the RL step's half-size upscale gives it at B=4
+   (every grid padded), token-major and channels-major; `fused_swin_block`
+   (row-major) at every signature the gate sends to it with fused_deep in fp32 and with
    one window, one fewer and one more than a CTA takes,
    `fused_swin_block_wide` at its four on-path shapes, each also at a window
    count no CTA size divides; the bf16 tensor-core body of cst and wide at
@@ -30,11 +31,28 @@
    gate's counts, frozen and trained parameters;
 5. the wide kernel's path: fused_layout="nmajor", one stage-1 step in fp32
    and one bf16 serving call, with launch counts and the plain comparison;
-6. times: per call (with the serving call's device-busy share), per
-   training step, and per kernel and on-path shape the kernel, its plain
-   version and its bound; for cst and wide the plan, the body it takes, its
-   registers and CTAs an SM; for the row-major kernel also the same launch
-   with [in, out]-stored weights and the plan of its CTAs.
+6. the d-space physics on the card: `Qwrapper(d_centers_hr).rebin` of
+   [8, 1, 250, 480] against a float64 bincount of the same index map, and
+   `diffraction_metrics_device` on 8 pairs of synthesized spectra against
+   the host scipy oracle; identical and empty spectra give 0;
+7. RL serving: three [4, 2, 250, 480] requests of synthesized Bragg
+   patterns through RLInference in bf16, every stage and alpha against the
+   plain route, 22 cst launches a call;
+8. the REINFORCE fine-tune, on a model whose rollout has peaks (rl_model)
+   and Bragg patterns with lines where they are, so that the reward is not
+   0: the first RL step in fp32 against the same step on the plain route
+   (reward and policy gradients not 0 on both; reward, losses, gradients),
+   then RLTrainer for 4
+   steps in bf16 at [4, 2, 250, 480] (scripts/rl_run.py's batch and dtype)
+   with launches per step against the gate, every step's reward not 0, the frozen parameters
+   unchanged bit for bit, and the reward and distance-gate times by CUDA
+   events;
+9. times: per call (with the serving call's device-busy share), per
+   training and RL step, and per kernel and on-path shape the kernel, its
+   plain version and its bound; for cst and wide the plan, the body it
+   takes, its registers and CTAs an SM; for the row-major kernel also the
+   same launch with [in, out]-stored weights and the plan of its CTAs; the
+   rebin (segment sums, and index_add_ beside it) and the metrics alone.
 
 Exits non-zero on any failure. The last lines are one JSON line on the
 kernels, the card's name and power limit (nvidia-smi), and
@@ -52,18 +70,28 @@ import time
 import numpy as np
 import torch
 
-from swinwnet_tpu_torch.models import SwinWNet
+from swinwnet_tpu_torch.models import AlphaPolicy, SwinWNet, apply_action
 from swinwnet_tpu_torch.ops import swin_block as sb
+from swinwnet_tpu_torch.ops.norms import denormalize_piecewise
 from swinwnet_tpu_torch.ops.window import window_pad_mask_np
-from swinwnet_tpu_torch.pipelines import STAGE_NAMES, SwinWNetInference
+from swinwnet_tpu_torch.physics import Qwrapper, d_centers_hr, find_peaks_for_batch, peak_matching_loss
+from swinwnet_tpu_torch.physics import peaks as peaks_mod
+from swinwnet_tpu_torch.physics.device_metrics import diffraction_metrics_device
+from swinwnet_tpu_torch.pipelines import STAGE_NAMES, RLInference, SwinWNetInference
 from swinwnet_tpu_torch.train import (
+    AdamW,
     FullModelTrainer,
+    RLTrainer,
     SegmentatorTrainer,
     SwinWNetTrainingPipeline,
     UpscalerTrainer,
+    masked_adamw,
+    rl_step,
 )
+from swinwnet_tpu_torch.train import rl as rl_mod
 
 SEED = 0
+RL_SEED = 1  # the fine-tune's model (rl_model)
 B = 4
 H, W = 250, 480
 N = 25
@@ -86,6 +114,14 @@ BLOCK_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # output (2^-8 relative) becomes up to ~2^-7 of the range: 5e-2 is about six
 # such steps at the worst pixel, and the mean must stay near one tenth of one
 PIPE_TOL = {torch.float32: (1e-3, 1e-4), torch.bfloat16: (5e-2, 1e-3)}
+# RL serving compares every stage at PIPE_TOL, but for one: upscaled_norm is
+# the bf16 SR output itself (times the gain sigmoid(alpha)), unscaled by
+# expm1 or a range. The routes' rounding differences, begun in the first
+# block and carried through the upscaler's bf16 layers, leave its mean
+# error at about 1.2e-3 of its max on the card, so the mean is held to half
+# a bf16 step at its max (2^-9), its max to PIPE_TOL's. A control in
+# rl_serve (every cst launch without its pad mask) must fail the comparison
+RL_UPSCALED_MEAN_TOL = 2.0 ** -9
 # (name, C, nH, token grid at B=1, launches per pipeline call in bf16)
 LEVELS = [
     ("encoder L0", 48, 3, (125, 240), 6),
@@ -114,6 +150,20 @@ WIDE_LEVELS = [
     ("SR level 2", 12, 3, (500, 960)),
     ("decoder last", 96, 3, (125, 240)),
 ]
+# the RL fine-tune as scripts/rl_run.py runs it: batch 4 (:46), bf16 compute
+# (:52), the 1241-bin d_centers_hr grid
+RL_B = 4
+# the half-size upscale of an RL step at RL_B, run twice a step (the reward's
+# rollout and the update's forward): every grid pads. With segment_1's six
+# launches at LEVELS' full-size shapes they are the 26 cst launches of a bf16
+# RL step; in fp32 the C <= 48 ones run (with segment_1's two, 14)
+RL_LEVELS = [
+    ("RL encoder L0", 48, 3, (63, 120), 4),
+    ("RL encoder L1", 96, 6, (32, 60), 4),
+    ("RL decoder last", 96, 3, (63, 120), 4),
+    ("RL SR level 1", 24, 3, (126, 240), 4),
+    ("RL SR level 2", 12, 3, (252, 480), 4),
+]
 ODD_WINDOWS = 1201  # a prime: no count of windows per CTA divides it
 # first training step, kernel route against plain route (fp32): the two
 # forwards differ by summation order (~3e-7 relative per block) and the two
@@ -122,6 +172,11 @@ ODD_WINDOWS = 1201  # a prime: no count of windows per CTA divides it
 # 1e-3 of its largest element; a one-element leaf (a cross-attention gamma)
 # is a sum of products of either sign that nearly cancel, and gets 2e-2
 TRAIN_LOSS_RTOL, TRAIN_GRAD_TOL, TRAIN_SCALAR_GRAD_TOL = 1e-5, 1e-3, 2e-2
+# rebin against a float64 bincount: fp32 sums of up to ~400 pixels a bin
+# (observed 4e-7 of the largest bin on the card), so 1e-5 of each bin catches
+# any indexing fault; the device metrics against the host scipy oracle with
+# the tolerance of tests/test_physics_device.py
+REBIN_RTOL, METRIC_TOL = 1e-5, 2e-3
 
 
 def n_windows(grid, batch):
@@ -228,10 +283,10 @@ def add(*counts):
 
 
 def expected_launches(what, batch, dtype, fused_deep, layout):
-    """Launches per kernel of one serving call or one training step, from
-    the gate: segment_1 and segment_2 are tower passes on the 250x480 token
-    source, upscale is a tower pass with the SR head; stage 2 and the even
-    step of stage 3 upscale the half-size image."""
+    """Launches per kernel of one serving call or one training or RL step,
+    from the gate: segment_1 and segment_2 are tower passes on the 250x480
+    token source, upscale is a tower pass with the SR head; stage 2, the
+    even step of stage 3 and the RL step upscale the half-size image."""
     tower = lambda hw, head: tower_launches(hw, batch, dtype, fused_deep, layout, head)
     seg, up_full, up_half = tower((H, W), False), tower((H, W), True), tower((H // 2, W // 2), True)
     return {
@@ -240,6 +295,9 @@ def expected_launches(what, batch, dtype, fused_deep, layout):
         "stage2": add(seg, up_half),
         "stage3_even": add(seg, up_half),
         "stage3_odd": add(seg, up_full, seg),
+        # segment_1, the reward's no-grad rollout and the update's forward
+        # (the backward recomputes in plain torch and launches nothing)
+        "rl": add(seg, up_half, up_half),
     }[what]
 
 
@@ -254,17 +312,20 @@ def report(tag, out, ref, dtype, extra_ok=True):
 
 
 def check_kernel(dtype, gen):
-    """`fused_swin_block_cst` against plain at the five on-path shapes (B=1)
-    and at a window count no CTA size divides; returns the largest absolute
+    """`fused_swin_block_cst` against plain at the five serving shapes (B=1),
+    the five shapes of the RL step's half-size upscale (B=RL_B, padded) and
+    a window count no CTA size divides; returns the largest absolute
     error."""
     worst = 0.0
-    for name, C, nH, grid, _ in LEVELS + [("odd count", 48, 3, (5, 5 * ODD_WINDOWS), 0)]:
-        xt, args, mask = level_args(C, nH, grid, 1, dtype, gen)
+    shapes = [(name, C, nH, grid, 1) for name, C, nH, grid, _ in LEVELS]
+    shapes += [(name, C, nH, grid, RL_B) for name, C, nH, grid, _ in RL_LEVELS]
+    for name, C, nH, grid, batch in shapes + [("odd count", 48, 3, (5, 5 * ODD_WINDOWS), 1)]:
+        xt, args, mask = level_args(C, nH, grid, batch, dtype, gen)
         for layout, x in (("token-major", xt.permute(2, 1, 0)), ("channels-major", xt.permute(2, 1, 0).contiguous())):
             out = sb.fused_swin_block_cst(x, *args, num_heads=nH, pad_mask=mask)
             torch.cuda.synchronize()
             ref = sb.swin_block_plain(x, *args, num_heads=nH, pad_mask=mask)
-            tag = f"cst  {name:13s} C={C:3d} nH={nH:2d} Wt={x.shape[2]:6d} mask={mask is not None!s:5s} {layout:14s}"
+            tag = f"cst  {name:15s} C={C:3d} nH={nH:2d} Wt={x.shape[2]:6d} mask={mask is not None!s:5s} {layout:14s}"
             worst = max(worst, report(tag, out, ref, dtype, out.stride() == x.stride()))
     return worst
 
@@ -441,8 +502,8 @@ def check_gradients(gen):
             raise SystemExit(f"the differentiable block disagrees with its reference ({layout})")
 
 
-def build_model(dtype, **kw):
-    gen = torch.Generator().manual_seed(SEED)
+def build_model(dtype, seed=SEED, **kw):
+    gen = torch.Generator().manual_seed(seed)
     model = SwinWNet(in_chans=1, error_matrix=True, embed_dim=48, depths=(2, 2, 2, 2),
                      num_heads=(3, 6, 12, 24), window_size=5, patch_size=2,
                      fused_blocks=True, dtype=dtype, device="cuda", generator=gen, **kw)
@@ -595,6 +656,7 @@ STAGE_TRAINS = {
     "stage1": lambda top: top == "patch_embed" or top.startswith("segmentator_"),
     "stage2": lambda top: top.startswith("upscaler_"),
     "stage3": lambda top: True,
+    "rl": lambda top: top.startswith("upscaler_") or top == "ca_seg_to_sr",
 }
 
 
@@ -699,6 +761,372 @@ def train_main_path(rng):
     profile_call(lambda: trainer.train_step(*batch, even=False), f"one stage-3 odd step, B={TRAIN_B}, fp32")
     del model, trainer
     return records, total
+
+
+# ---------------------------------------------------------------------------
+# The d-space physics and the REINFORCE fine-tune
+# ---------------------------------------------------------------------------
+
+
+def synth_spectra(rng, batch, n, n_peaks=8):
+    """[batch, n] sums of Gaussian peaks over d in [0, 7.5] (the spectra of
+    tests/test_physics_device.py)."""
+    x = np.linspace(0, 7.5, n)
+    out = np.zeros((batch, n))
+    for b in range(batch):
+        for _ in range(n_peaks):
+            c, w, a = rng.uniform(0.3, 7.0), rng.uniform(0.03, 0.12), rng.uniform(0.3, 5.0)
+            out[b] += a * np.exp(-0.5 * ((x - c) / w) ** 2)
+    return out.astype(np.float32)
+
+
+def bragg_patterns(rng, batch, lines=()):
+    """[batch, 2, 250, 480] synthesized diffraction patterns on the
+    detector's grid (lambda in [0.1, 10] A down the rows, theta in
+    [-170, 170] degrees across): 6-10 random d-spacings and the d-spacings
+    `lines`, each a Gaussian line at lambda = 2 d sin(|theta|/2) of width
+    0.04 A + 2% of lambda, over a flat background, in counts, and their
+    Poisson error sqrt(I)."""
+    lam = np.linspace(0.1, 10.0, H)[:, None]
+    s = 2.0 * np.sin(np.abs(np.deg2rad(np.linspace(-170.0, 170.0, W)))[None, :] / 2.0)
+    out = []
+    for _ in range(batch):
+        img = np.full((H, W), 2.0)
+        ds = np.concatenate([rng.uniform(0.6, 6.0, rng.integers(6, 11)), lines])
+        for d, a in zip(ds, rng.uniform(300.0, 1000.0, len(ds))):
+            lam_b = d * s
+            img += a * np.exp(-0.5 * ((lam - lam_b) / (0.04 + 0.02 * lam_b)) ** 2)
+        out.append(img)
+    counts = np.stack(out)[:, None]
+    return np.concatenate([counts, np.sqrt(counts)], axis=1).astype(np.float32)
+
+
+class EventTimer:
+    """Device time of the calls of wrapped functions, by CUDA events
+    recorded around each call (a host sync inside a call is in its span)."""
+
+    def __init__(self):
+        self.spans = {}
+
+    def wrap(self, name, fn):
+        def timed(*args, **kwargs):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = fn(*args, **kwargs)
+            e1.record()
+            self.spans.setdefault(name, []).append((e0, e1))
+            return out
+        return timed
+
+    def ms(self, name):
+        torch.cuda.synchronize()
+        return [e0.elapsed_time(e1) for e0, e1 in self.spans.get(name, [])]
+
+
+def check_physics(rng):
+    """The rebin against a float64 bincount of its own index map, and the
+    device metrics against the host scipy oracle on the card; returns the
+    times of the rebin (segment sums and, beside it, index_add_) and of the
+    metrics at the RL reward's shapes."""
+    qw = Qwrapper(fixed_centers=d_centers_hr)
+    n = qw.n_bins
+    x = rng.uniform(0, 1e3, (8, 1, H, W)).astype(np.float32)
+    x_dev = torch.from_numpy(x).cuda()
+    got = qw.rebin(x_dev)
+    idx = qw._indices_for(H, W)
+    want = np.stack([np.bincount(idx, weights=img.ravel().astype(np.float64), minlength=n + 1)[:n] for img in x[:, 0]])
+    err = float(np.abs(got.cpu().numpy() - want).max() / np.abs(want).max())
+    ok = got.device == x_dev.device and np.allclose(got.cpu().numpy(), want, rtol=REBIN_RTOL, atol=0)
+    ok = ok and torch.equal(got, qw.rebin(x_dev))
+    print(f"  rebin [8, 1, {H}, {W}] -> [8, {n}] on the card against a float64 bincount: max err {err:.2e} of the "
+          f"largest bin (rtol {REBIN_RTOL:.0e} a bin), the same bits when repeated {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("physics: the rebin disagrees with the bincount of its index map")
+
+    pred = synth_spectra(rng, 8, n)
+    true = pred * rng.uniform(0.7, 1.3, (8, 1)).astype(np.float32) + synth_spectra(rng, 8, n, n_peaks=2) * 0.3
+    got = diffraction_metrics_device(torch.from_numpy(pred).cuda(), torch.from_numpy(true).cuda(), d_centers_hr)
+    host = peak_matching_loss(find_peaks_for_batch([{"d": qw.centers, "I": p} for p in pred]),
+                              find_peaks_for_batch([{"d": qw.centers, "I": t} for t in true]))
+    worst = 0.0
+    for key, want_k in host.items():
+        g, w = got[key].cpu().numpy(), np.asarray(want_k)
+        worst = max(worst, float(np.max(np.abs(g - w) / (METRIC_TOL + METRIC_TOL * np.abs(w)))))
+    zero = torch.zeros(2, n).cuda()
+    same = diffraction_metrics_device(torch.from_numpy(pred[:2]).cuda(), torch.from_numpy(pred[:2]).cuda(), d_centers_hr)
+    empty = diffraction_metrics_device(zero, zero, d_centers_hr)
+    zeros_ok = all(float(same[k].abs().max()) <= 1e-6 and float(empty[k].abs().max()) == 0.0 for k in host)
+    matched = int((np.asarray(host["Integral Intensity"]) > 0).sum())
+    ok = worst <= 1.0 and zeros_ok and matched == 8
+    print(f"  diffraction_metrics_device, 8 pairs of synthesized spectra, against the host scipy oracle: worst "
+          f"{worst:.2e} of rtol = atol = {METRIC_TOL:.0e}, {matched}/8 pairs matched; identical and empty spectra "
+          f"give 0: {zeros_ok} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("physics: the device metrics disagree with the host oracle")
+
+    # alone, at the RL reward's shapes: the pred [4, 1, 500, 960] and true
+    # [4, 1, 250, 480] rebins, and the metrics on [4, 1241] pairs
+    hr = torch.from_numpy(rng.uniform(0, 1e3, (RL_B, 1, 2 * H, 2 * W)).astype(np.float32)).cuda()
+    idx_hr = torch.from_numpy(qw._indices_for(2 * H, 2 * W)).cuda()
+    out = torch.zeros(RL_B, n + 1).cuda()
+    flat = hr.reshape(RL_B, -1)
+    p4, t4 = torch.from_numpy(pred[:RL_B]).cuda(), torch.from_numpy(true[:RL_B]).cuda()
+    return {
+        f"rebin [{RL_B}, 1, {2 * H}, {2 * W}] (segment sums)": cuda_ms(lambda: qw.rebin(hr), 20),
+        f"the same by index_add_ (atomics)": cuda_ms(lambda: out.zero_().index_add_(1, idx_hr, flat), 20),
+        f"metrics on [{RL_B}, {n}] pairs": cuda_ms(lambda: diffraction_metrics_device(p4, t4, d_centers_hr), 5),
+    }
+
+
+def rl_policy(device="cuda"):
+    return AlphaPolicy(device=device, generator=torch.Generator().manual_seed(SEED + 1))
+
+
+def rl_model(negate=True):
+    """The fine-tune's model: build_model's fp32 weights from RL_SEED, with
+    the upscaler's output layer negated. The draw as it comes gives an SR
+    output below 0 in most pixels and anti-correlated with its target, so
+    its rollout has few peaks or none (rollout_lines counts them) and the
+    reward was 0 in every step; negated, it is as likely a draw of the same
+    distribution, and its rollout has peaks."""
+    model = build_model(torch.float32, seed=RL_SEED).train()
+    if negate:
+        with torch.no_grad():
+            out = model.upscaler_head.reconstruction[2]
+            out.weight.neg_()
+            out.bias.neg_()
+    return model
+
+
+def rollout_peaks(model, policy, images):
+    """d-spacings at which the reward's rollout of `images` (upscale,
+    apply_action at mu, denormalize, rebin of channel 0) has peaks that
+    pass the reward's gates, over the batch."""
+    qw = Qwrapper(fixed_centers=d_centers_hr)
+    with torch.no_grad(), plain_blocks():
+        _, norm_lr, _, params_hr, skips = rl_mod.rl_preprocess(model, images)
+        mu, _ = policy(norm_lr)
+        sr, _ = model.upscale(norm_lr, skips)
+        spec = qw.rebin(denormalize_piecewise(apply_action(sr.float(), mu), params_hr)[:, 0:1])
+        pk = peaks_mod.find_peaks_device(spec)
+    return np.unique(qw.centers[pk["idx"][pk["valid"]].cpu().numpy()])
+
+
+def rollout_lines(rng):
+    """The d-spacings of rl_model's rollout peaks on Bragg patterns: patterns
+    with lines there give those peaks a true peak to match, so that the
+    reward is not 0."""
+    images = torch.from_numpy(bragg_patterns(rng, RL_B)).cuda()
+    as_drawn = rollout_peaks(rl_model(negate=False), rl_policy(), images)
+    lines = rollout_peaks(rl_model(), rl_policy(), images)
+    print(f"  the rollout's peaks on [{RL_B}, 2, {H}, {W}] Bragg patterns: {len(as_drawn)} with the weights as "
+          f"drawn, {len(lines)} with the output layer negated (rl_model), at d = "
+          f"{[round(float(d), 3) for d in lines]} A; the fine-tune's patterns get lines there")
+    if len(lines) == 0:
+        raise SystemExit("RL: the rollout has no peak to match")
+    return lines
+
+
+def rl_stage_check(got, plain, quiet=False):
+    """Every RL-serving stage and alpha in `got` against the plain route's
+    (bf16 PIPE_TOL; upscaled_norm's mean at RL_UPSCALED_MEAN_TOL): returns
+    the stages that fail, and upscaled_norm's mean error over its
+    tolerance."""
+    failed, ratio = [], 0.0
+    tol_max = PIPE_TOL[torch.bfloat16][0]
+    for k, b in plain.items():
+        a, b = got[k].float(), b.float()
+        tol_mean = RL_UPSCALED_MEAN_TOL if k == "upscaled_norm" else PIPE_TOL[torch.bfloat16][1]
+        scale = 1.0 if k.startswith("seg") else max(b.abs().max().item(), 1e-30)
+        err, mean = (a - b).abs().max().item(), (a - b).abs().mean().item()
+        ok = bool(torch.isfinite(a).all()) and err <= tol_max * scale and mean <= tol_mean * scale
+        if k == "upscaled_norm":
+            ratio = mean / (tol_mean * scale)
+        if not quiet:
+            print(f"  RL {k:17s} {str(tuple(a.shape)):22s} kernel vs plain: max_abs={err:.3e} (tol "
+                  f"{tol_max * scale:.3e}) mean_abs={mean:.3e} (tol {tol_mean * scale:.3e}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(k)
+    return failed, ratio
+
+
+def rl_serve(rng, n_calls=3):
+    """RLInference at bf16 on [RL_B, 2, 250, 480] Bragg patterns: every
+    stage and alpha against the plain route (rl_stage_check), and a control
+    that must fail it; launches per call against the gate. Returns
+    (per-call ms, plain ms, launches in the run)."""
+    bf16 = torch.bfloat16
+    infer = RLInference(build_model(bf16), rl_policy())
+    requests = [bragg_patterns(rng, RL_B) for _ in range(n_calls)]
+    infer(requests[0])  # warm-up
+    torch.cuda.synchronize()
+    names = STAGE_NAMES + ("alpha",)
+    sb.reset_counts()
+    per_call, call_ms, first = [], [], None
+    for req in requests:
+        before = launches()
+        t0 = time.perf_counter()
+        infer(req)
+        torch.cuda.synchronize()
+        call_ms.append((time.perf_counter() - t0) * 1e3)
+        per_call.append([b - a for a, b in zip(before, launches())])
+        if first is None:
+            first = {k: getattr(infer, k).clone() for k in names}
+    total = launches()
+    with plain_blocks():
+        infer(requests[0])
+        torch.cuda.synchronize()
+        plain = {k: getattr(infer, k).clone() for k in names}
+        t0 = time.perf_counter()
+        infer(requests[0])
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+    want = expected_launches("serve", RL_B, bf16, False, "cmajor")
+    if launches() != total or any(n != want for n in per_call):
+        raise SystemExit(f"RL serving: launches per call {per_call} (gate: {want}), or the plain route launched")
+    failed, _ = rl_stage_check(first, plain)
+    if failed:
+        raise SystemExit(f"RL serving: {failed} disagree with the plain route or are not finite")
+    # a control: the first request again with every cst launch ignoring its
+    # pad mask (a fault of the padded levels) must fail that comparison
+    call = sb._kernel_call
+    sb._kernel_call = lambda layout, nH, x, mask, *w: call(layout, nH, x, None if layout == "cmajor" else mask, *w)
+    try:
+        infer(requests[0])
+        torch.cuda.synchronize()
+    finally:
+        sb._kernel_call = call
+    caught, ratio = rl_stage_check({k: getattr(infer, k) for k in names}, plain, quiet=True)
+    print(f"  control, every cst launch without its pad mask: fails at {caught}; upscaled_norm's mean error "
+          f"{ratio:.2f}x its tolerance {'ok' if caught else 'FAIL'}")
+    if not caught:
+        raise SystemExit("RL serving: the stage comparison does not catch a dropped pad mask")
+    print(f"  RL serving launches per call [cst, row-major, wide] {per_call} (gate: {want}); alpha "
+          f"{[round(v, 4) for v in first['alpha'].flatten().tolist()]}")
+    profile_call(lambda: infer(requests[0]), "one RL serving call")
+    return call_ms, plain_ms, total
+
+
+RL_METRICS = ("reward", "policy_loss", "rec", "sup_loss")
+
+
+def rl_first_step(images, noise, plain):
+    """One fp32 RL step from rl_model's weights; returns (metrics, gradients
+    of the model and the policy by name, launches)."""
+    model = rl_model()
+    policy = rl_policy()
+    model_opt = masked_adamw(model, "rl", 1e-5, weight_decay=0.0)
+    policy_opt = AdamW(policy.parameters(), 1e-4, weight_decay=0.0)
+    before = launches()
+    with plain_blocks() if plain else contextlib.nullcontext():
+        m = rl_step(model, policy, model_opt, policy_opt, Qwrapper(fixed_centers=d_centers_hr), images, noise)
+    torch.cuda.synchronize()
+    grads = {k: p.grad.clone() for k, p in model.named_parameters() if p.grad is not None}
+    grads.update({f"policy.{k}": p.grad.clone() for k, p in policy.named_parameters()})
+    return {k: float(v) for k, v in m.items()}, grads, [b - a for a, b in zip(before, launches())]
+
+
+def compare_rl_first_steps(rng, lines):
+    """The first fp32 RL step through the kernels against the same step
+    through the plain versions, with compare_first_steps' tolerances, after
+    checking that on both routes the reward and every policy gradient are
+    not 0."""
+    images = torch.from_numpy(bragg_patterns(rng, RL_B, lines)).cuda()
+    noise = torch.randn((RL_B, 1), generator=torch.Generator().manual_seed(SEED)).cuda()
+    m_k, grads_k, n_k = rl_first_step(images, noise, plain=False)
+    m_p, grads_p, n_p = rl_first_step(images, noise, plain=True)
+    want = expected_launches("rl", RL_B, torch.float32, False, "cmajor")
+    live = {route: m["reward"] != 0 and all(g[k].abs().max().item() > 0 for k in g if k.startswith("policy."))
+            for route, m, g in (("kernel", m_k, grads_k), ("plain", m_p, grads_p))}
+    print(f"  RL first step, fp32: reward and every policy gradient not 0 on the kernel route {live['kernel']}, "
+          f"on the plain route {live['plain']}")
+    if not all(live.values()):
+        raise SystemExit("RL: the first step's reward or a policy gradient is 0, so the comparison shows nothing")
+    worst, worst_name = 0.0, ""
+    for k, g in grads_p.items():
+        scale = g.abs().max().item()
+        if scale == 0:
+            if grads_k[k].abs().max().item() != 0:
+                worst, worst_name = float("inf"), f"{k} (zero on the plain route only)"
+            continue
+        rel = (grads_k[k] - g).abs().max().item() / scale
+        tol = TRAIN_SCALAR_GRAD_TOL if g.numel() == 1 else TRAIN_GRAD_TOL
+        if rel / tol > worst:
+            worst, worst_name = rel / tol, f"{k} ({rel:.2e} of its max, tol {tol:.0e})"
+    rel = {k: abs(m_k[k] - m_p[k]) / abs(m_p[k]) if m_p[k] else abs(m_k[k]) for k in RL_METRICS}
+    ok = (all(np.isfinite(v) for v in m_k.values()) and max(rel.values()) <= TRAIN_LOSS_RTOL and worst <= 1.0
+          and n_k == want and n_p == [0, 0, 0] and grads_k.keys() == grads_p.keys())
+    print(f"  RL first step, fp32: " + ", ".join(f"{k} {m_k[k]:.6g} vs plain {m_p[k]:.6g}" for k in RL_METRICS)
+          + f" (worst rel {max(rel.values()):.1e}, tol {TRAIN_LOSS_RTOL:.0e}); integral {m_k['integral']:.4g}, "
+          f"peak {m_k['peak']:.4g}, shape {m_k['shape']:.4g}; {len(grads_k)} gradients, worst {worst_name}; "
+          f"launches {n_k} (gate: {want}), plain route {n_p} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("RL: the first step disagrees with the plain route")
+
+
+def rl_main_path(rng, lines, n_steps=4):
+    """RLTrainer over one epoch of n_steps [RL_B, 2, 250, 480] batches in
+    bf16 (scripts/rl_run.py's batch and dtype), the reward's parts timed by
+    CUDA events. Returns (per-step ms, reward ms, distance-gate ms, ranks
+    the gate looped, launches in the run, peak GiB)."""
+    model = rl_model()
+    policy = rl_policy()
+    loader = ProbeLoader([(bragg_patterns(rng, RL_B, lines),) for _ in range(n_steps)], model)
+    trainer = RLTrainer(model, policy, loader, num_epochs=1, compute_dtype=torch.bfloat16, seed=SEED, verbose=False)
+    rewards, train_step = [], trainer.train_step
+
+    def step_noting_reward(images):
+        m = train_step(images)
+        rewards.append(float(m["reward"]))
+        return m
+
+    trainer.train_step = step_noting_reward
+    timer, ranks = EventTimer(), []
+    enforce = peaks_mod._enforce_distance
+
+    def gate(mask, I, distance):
+        out = timed_gate(mask, I, distance)
+        ranks.append(int(mask.sum(1).max()))
+        return out
+
+    timed_gate = timer.wrap("gate", enforce)
+    orig = (Qwrapper.rebin, rl_mod.diffraction_metrics_device)
+    Qwrapper.rebin = timer.wrap("rebin", Qwrapper.rebin)
+    rl_mod.diffraction_metrics_device = timer.wrap("metrics", rl_mod.diffraction_metrics_device)
+    peaks_mod._enforce_distance = gate
+    torch.cuda.reset_peak_memory_stats()
+    sb.reset_counts()
+    try:
+        metrics = trainer.train_epoch()
+        torch.cuda.synchronize()
+    finally:
+        Qwrapper.rebin, rl_mod.diffraction_metrics_device = orig
+        peaks_mod._enforce_distance = enforce
+    total = launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    if not all(np.isfinite(v) for v in metrics.values()):
+        raise SystemExit(f"RL: a metric is not finite: {metrics}")
+    check_frozen("rl", loader.epochs[0]["params"], snapshot(model))
+    steps = loader.steps(0)
+    want = expected_launches("rl", RL_B, torch.bfloat16, False, "cmajor")
+    if len(steps) != n_steps or any(n != want for _, n in steps):
+        raise SystemExit(f"RL: launches per step {[n for _, n in steps]}, the gate implies {want}")
+    if trainer.policy_opt.count != n_steps or trainer.model_opt.count != n_steps:
+        raise SystemExit("RL: the policy's or the model's step count did not advance once a step")
+    if 0.0 in rewards:
+        raise SystemExit(f"RL: a step's reward is 0: {rewards}")
+    rebin, met, dist = timer.ms("rebin"), timer.ms("metrics"), timer.ms("gate")
+    reward_ms = [rebin[2 * i] + rebin[2 * i + 1] + met[i] for i in range(n_steps)]
+    print(f"  RL bf16 B={RL_B}: {n_steps} steps, launches per step [cst, row-major, wide] {[n for _, n in steps]} "
+          f"(gate: {want}); policy steps {trainer.policy_opt.count}; rewards {[round(r, 4) for r in rewards]}; "
+          f"epoch metrics "
+          + " ".join(f"{k}={v:.4g}" for k, v in metrics.items()))
+    print(f"  RL ms per step {[round(ms, 1) for ms, _ in steps]}; of which the reward (2 rebins + metrics) "
+          f"{[round(t, 2) for t in reward_ms]}, the distance gate {[round(t, 2) for t in dist]} over "
+          f"{ranks} candidate ranks; peak device memory {peak_gb:.2f} GiB")
+    images = loader.batches[1][0]
+    profile_call(lambda: train_step(images), f"one RL step, bf16, B={RL_B}")
+    return [ms for ms, _ in steps], reward_ms, dist, ranks, total, peak_gb
 
 
 def plan_text(C, nH, dtype, round_qkv=True):
@@ -852,14 +1280,28 @@ def main() -> int:
           f"63x120, does not tile and runs the unfused blocks)")
     check_pipeline(bf16, B, sw, pw, pc_w, want)
     main_path = add(main_path, n_step, total_w)
+
+    print("[6] the d-space physics on the card")
+    phys_ms = check_physics(rng)
+    print(f"[7] RL serving, bf16, 3 requests of [{RL_B}, 2, {H}, {W}] synthesized Bragg patterns")
+    rl_call_ms, rl_plain_ms, total = rl_serve(rng)
+    main_path = add(main_path, total)
+    print(f"[8] the REINFORCE fine-tune, batches of [{RL_B}, 2, {H}, {W}] synthesized Bragg patterns")
+    lines = rollout_lines(rng)
+    compare_rl_first_steps(rng, lines)
+    rl_ms, reward_ms, gate_ms, ranks, total, rl_peak_gb = rl_main_path(rng, lines)
+    main_path = add(main_path, total)
     if min(main_path) == 0:
         raise SystemExit(f"a kernel was launched no time on the main paths: {main_path}")
+    if expected_launches("rl", RL_B, bf16, False, "cmajor")[0] != (
+            expected_launches("stage1", RL_B, bf16, False, "cmajor")[0] + sum(r[4] for r in RL_LEVELS)):
+        raise SystemExit("RL_LEVELS are not the shapes of the RL step's upscale launches")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
-    print(f"[6] times on {smi}")
+    print(f"[9] times on {smi}")
     mean_ms = float(np.mean(call_ms))
     wall, busy = PROFILES["one serving call"]
     print(f"  serving bf16 B={B}: per call {', '.join(f'{t:.1f}' for t in call_ms)} ms (mean {mean_ms:.1f} ms, "
@@ -871,6 +1313,13 @@ def main() -> int:
         warm = ms[1:] if len(ms) > 1 else ms
         print(f"  training fp32 B={TRAIN_B} {kind}: ms per step {[round(t, 1) for t in ms]}, "
               f"after the stage's first step {float(np.mean(warm)):.1f} ms")
+    warm = lambda ts: float(np.mean(ts[1:]))
+    print(f"  RL fine-tune bf16 B={RL_B}: ms per step {[round(t, 1) for t in rl_ms]}, after the first "
+          f"{warm(rl_ms):.1f} ms; of which the reward (2 rebins + metrics) {warm(reward_ms):.2f} ms and the "
+          f"distance gate {warm(gate_ms):.2f} ms ({ranks} ranks); peak device memory {rl_peak_gb:.2f} GiB")
+    print(f"  RL serving bf16 B={RL_B}: per call {', '.join(f'{t:.1f}' for t in rl_call_ms)} ms (mean "
+          f"{float(np.mean(rl_call_ms)):.1f} ms); through the plain versions {rl_plain_ms:.1f} ms")
+    print("  physics alone: " + "; ".join(f"{k} {v:.4f} ms" for k, v in phys_ms.items()))
     tot_cst = time_levels(bf16, gen)
     print(f"  cst: one bf16 serving call's {LAUNCHES_PER_CALL[bf16]} launches: kernel {tot_cst['ms']:.3f} ms, "
           f"plain {tot_cst['plain_ms']:.3f} ms")

@@ -7,10 +7,13 @@ core       configuration dataclasses, device and dtype selection
 ops        windowing, resize, normalization, and the fused Swin-block kernels
            (CUDA C++ in ops/csrc, built with nvcc on first use) with their
            differentiable entry point
-models     nn.Module SwinWNet with the upstream torch state-dict names
-pipelines  the 8-stage inference pipeline
+models     nn.Module SwinWNet with the upstream torch state-dict names, and
+           the RL alpha policy
+pipelines  the 8-stage inference pipeline, and its RL variant
+physics    d-space rebinning, peak finding and the peak metrics on the
+           device; the host scipy oracle of the published metric spec
 train      losses, schedule, stage freezing with AdamW, the three
-           supervised trainers and their pipeline
+           supervised trainers and their pipeline, the REINFORCE fine-tune
 utils      JSONL metrics logging, checkpoints on torch.save
 compat     upstream .pth loading and the JAX-params bridge, both ways
 

@@ -1,3 +1,4 @@
+from .alpha_policy import AlphaPolicy, apply_action
 from .layers import (
     BasicLayer,
     Bottleneck,
@@ -31,4 +32,6 @@ __all__ = [
     "WindowAttention",
     "SwinWNet",
     "init_weights",
+    "AlphaPolicy",
+    "apply_action",
 ]

@@ -12,9 +12,10 @@
   JAX package's one exception: the cross-attention returns fp32
   (`q + gamma * out` with an fp32 gamma), so in bf16 the residual trunks of
   the levels it feeds (the bottleneck and the first decoder stage) are fp32.
-* The models take no dropout rate (every rate of the published recipe is 0),
-  so a forward is deterministic in `train()` and in `eval()` alike, and both
-  take the same route.
+* The models take only a dropout rate of 0 (every rate of the published
+  recipe is 0; `SwinWNet` raises on any other), so a forward is
+  deterministic in `train()` and in `eval()` alike, and both take the same
+  route.
 * `BasicLayer` sends a whole level to a fused block kernel
   (`ops/swin_block.py`, through its differentiable entry point) with the
   JAX package's gate: at least 128 windows; C <= 96 in bf16 or C <= 48 in
@@ -35,7 +36,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.resize import bilinear_resize
-from ..ops.swin_block import fused_block_autodiff
+from ..ops.swin_block import fused_block_autodiff, kernel_plan
 from ..ops.window import (
     relative_position_index,
     window_pad_mask_np,
@@ -233,7 +234,9 @@ class BasicLayer(nn.Module):
         blocks. At least 128 windows; C <= 96 in bf16 (48 in fp32) goes to
         `fused_layout`, where "nmajor" has no pad mask and falls back on a
         grid that does not tile; wider levels up to C = 384 go to
-        "rowmajor" when `fused_deep`."""
+        "rowmajor" when `fused_deep`. A level the kernel has no plan for
+        (`kernel_plan` raises, as at a head width that is not a multiple of
+        4) stays on the unfused blocks, which compute the same block."""
         ws = self.window_size
         cap = 96 if self.dtype == torch.bfloat16 else 48
         n_windows = B * (-(-H // ws)) * (-(-W // ws))
@@ -241,8 +244,19 @@ class BasicLayer(nn.Module):
             return ""
         if self.dim <= cap:
             padded = H % ws != 0 or W % ws != 0
-            return "" if self.fused_layout == "nmajor" and padded else self.fused_layout
-        return "rowmajor" if self.fused_deep and self.dim <= 384 else ""
+            route = "" if self.fused_layout == "nmajor" and padded else self.fused_layout
+        else:
+            route = "rowmajor" if self.fused_deep and self.dim <= 384 else ""
+        return route if route and self._kernel_takes(route) else ""
+
+    def _kernel_takes(self, route: str) -> bool:
+        """Whether the kernel has a plan for this level's width, heads and
+        dtype on `route` (the row-major entry keeps qkv fp32)."""
+        try:
+            kernel_plan(self.dim, self.blocks[0].num_heads, self.dtype, round_qkv=route != "rowmajor")
+        except (ValueError, TypeError):
+            return False
+        return True
 
     def uses_kernel(self, B: int, H: int, W: int) -> bool:
         return self.fused_route(B, H, W) != ""

@@ -45,7 +45,11 @@ class SwinWNet(nn.Module):
     above the width cap through the row-major kernel (its
     SWINWNET_FUSED_DEEP=1) and `fused_layout` picks "cmajor" or "nmajor" for
     the levels under the cap (its SWINWNET_FUSED_LAYOUT). Both are carried
-    down to every BasicLayer."""
+    down to every BasicLayer.
+
+    `drop`, `attn_drop` and `drop_path` are the JAX model's dropout rates.
+    Every recipe in the repo sets them to 0, and only 0 is taken: dropout
+    itself is not ported yet (ROADMAP A.5), so any other rate raises."""
 
     def __init__(
         self,
@@ -64,8 +68,14 @@ class SwinWNet(nn.Module):
         generator: Optional[torch.Generator] = None,
         fused_deep: bool = False,
         fused_layout: str = "cmajor",
+        drop: float = 0.0,
+        attn_drop: float = 0.0,
+        drop_path: float = 0.0,
     ):
         super().__init__()
+        for name, rate in (("drop", drop), ("attn_drop", attn_drop), ("drop_path", drop_path)):
+            if rate != 0.0:
+                raise ValueError(f"{name}={rate}: the port takes no dropout yet (ROADMAP A.5); only 0.0")
         device = resolve_device(device)
         dt = resolve_dtype(dtype)
         self.patch_size, self.error_matrix, self.dtype = patch_size, error_matrix, dt

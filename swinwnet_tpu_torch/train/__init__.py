@@ -15,6 +15,7 @@ from .losses import (
     tversky_loss,
 )
 from .pipeline import SwinWNetTrainingPipeline
+from .rl import RLTrainer, rl_step
 from .schedule import warmup_cosine_schedule
 from .trainers import FullModelTrainer, SegmentatorTrainer, UpscalerTrainer
 
@@ -41,4 +42,6 @@ __all__ = [
     "FullModelTrainer",
     "SegmentatorTrainer",
     "UpscalerTrainer",
+    "RLTrainer",
+    "rl_step",
 ]

@@ -14,7 +14,7 @@ functions and thin epoch loops.
 A step is forward, backward and one AdamW update on the model's own
 parameters, in place. The forward goes through the fused block kernels when
 the model was built with `fused_blocks=True`, in `train()` and `eval()` alike
-(the models take no dropout rate).
+(the models take only a dropout rate of 0).
 
 Mixed precision: `compute_dtype=torch.bfloat16` runs the model's products
 in bf16 while parameters, optimizer state and losses stay fp32 and the

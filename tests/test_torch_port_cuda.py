@@ -29,7 +29,10 @@ def cuda():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("C,nH,grid", [(48, 3, (25, 30)), (96, 6, (13, 24)), (96, 3, (25, 30)),
-                                       (24, 3, (50, 60)), (12, 3, (100, 120))])
+                                       (24, 3, (50, 60)), (12, 3, (100, 120)),
+                                       # padded grids at every shape, as the RL step's half-size upscale gives them
+                                       (48, 3, (13, 24)), (96, 6, (7, 12)), (96, 3, (13, 24)),
+                                       (24, 3, (26, 48)), (12, 3, (52, 96))])
 def test_kernel_matches_plain(cuda, C, nH, grid, dtype):
     g = torch.Generator().manual_seed(C + nH)
     A = lambda *s: torch.randn(*s, generator=g) * 0.05
@@ -234,3 +237,50 @@ def test_tensor_core_output_may_alias_the_input(cuda, C, nH):
     sb._launch(sb.fused_swin_block_cst, x, x, mask, weights_oi, fp32, nH, True, True)
     torch.cuda.synchronize()
     assert (x.float() - ref.float()).abs().max().item() <= 2e-2 * ref.float().abs().max().item()
+
+
+# ---------------------------------------------------------------------------
+# The d-space physics on the card against the same functions on the CPU
+# ---------------------------------------------------------------------------
+
+
+def _synth_spectra(seed, B, n, n_peaks=8):
+    rng = np.random.default_rng(seed)
+    x = np.linspace(0, 7.5, n)
+    out = np.zeros((B, n))
+    for b in range(B):
+        for _ in range(n_peaks):
+            out[b] += rng.uniform(0.3, 5.0) * np.exp(-0.5 * ((x - rng.uniform(0.3, 7.0)) / rng.uniform(0.03, 0.12)) ** 2)
+    return out.astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(250, 480), (500, 960)])
+def test_rebin_on_the_card_matches_the_cpu(cuda, shape):
+    """Each bin is summed in pixel order on both devices (segment_reduce):
+    fp32 rounding of the same sums, 1e-6 relative."""
+    from swinwnet_tpu_torch.physics import Qwrapper, d_centers_hr
+
+    x = torch.from_numpy(np.random.default_rng(1).uniform(0, 1e3, (4, 1, *shape)).astype(np.float32))
+    qw = Qwrapper(fixed_centers=d_centers_hr)
+    got = qw.rebin(x.to(cuda))
+    assert got.device.type == "cuda"
+    want = qw.rebin(x)
+    assert torch.allclose(got.cpu(), want, rtol=1e-6, atol=0)
+    assert torch.equal(qw.rebin(x.to(cuda)), got)  # deterministic on the card
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", range(3))
+def test_device_metrics_on_the_card_match_the_cpu(cuda, seed):
+    from swinwnet_tpu_torch.physics import d_centers_hr
+    from swinwnet_tpu_torch.physics.device_metrics import diffraction_metrics_device
+
+    pred = _synth_spectra(seed, 4, len(d_centers_hr))
+    true = pred * np.float32(1.1) + _synth_spectra(seed + 10, 4, len(d_centers_hr), 2) * np.float32(0.3)
+    got = diffraction_metrics_device(torch.from_numpy(pred).to(cuda), torch.from_numpy(true).to(cuda), d_centers_hr)
+    want = diffraction_metrics_device(torch.from_numpy(pred), torch.from_numpy(true), d_centers_hr)
+    for key, value in want.items():
+        assert got[key].device.type == "cuda"
+        assert torch.allclose(got[key].cpu(), value, rtol=1e-4, atol=1e-5), key
+    assert (want["Integral Intensity"] > 0).all()

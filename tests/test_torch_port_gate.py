@@ -119,3 +119,53 @@ def test_forward_takes_the_route_in_train_and_eval(C, nH, B, grid, fused_deep, f
 def test_fused_layout_is_validated():
     with pytest.raises(ValueError, match="fused_layout"):
         BasicLayer(12, 1, 3, 5, fused_layout="rowmajor")
+
+
+@pytest.mark.parametrize("C,nH,dtype,fused_deep,layout", [
+    (30, 3, "float32", False, "cmajor"),  # head width 10
+    (30, 3, "bfloat16", False, "nmajor"),
+    (6, 3, "float32", False, "cmajor"),  # head width 2: the tiny model's SR level
+    (120, 12, "float32", True, "cmajor"),  # head width 10 on the row-major route
+    (96, 32, "bfloat16", False, "cmajor"),  # head width 3
+])
+def test_route_is_unfused_where_the_kernel_has_no_plan(C, nH, dtype, fused_deep, layout):
+    """A level the JAX gate admits but the kernel has no plan for (a head
+    width that is not a multiple of 4) goes to the unfused blocks, and its
+    forward on the CPU equals theirs."""
+    dt = getattr(torch, dtype)
+    with pytest.raises(ValueError, match="head width"):
+        sb.kernel_plan(C, nH, dt, round_qkv=C <= 96)
+    layer = BasicLayer(C, 2, nH, 5, fused_blocks=True, dtype=dt, fused_deep=fused_deep, fused_layout=layout)
+    assert layer.fused_route(4, 50, 60) == ""
+    init_weights(layer, torch.Generator().manual_seed(2))
+    unfused = BasicLayer(C, 2, nH, 5, fused_blocks=False, dtype=dt)
+    unfused.load_state_dict(layer.state_dict())
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal((4, 50, 60, C)).astype(np.float32)).to(dt)
+    sb.reset_counts()
+    with torch.no_grad():
+        out = layer(x)
+        np.testing.assert_array_equal(out.float().numpy(), unfused(x).float().numpy())
+    assert [k.plain_calls for k in sb.KERNELS] == [0, 0, 0]
+
+
+def test_model_with_a_level_the_kernel_refuses_runs_fused_on_the_cpu(monkeypatch):
+    """The tiny model's SR head levels (6 and 3 wide, 3 heads) have head
+    widths 2 and 1: with the window rule lowered, every other level goes to
+    a wrapper, those two to the unfused blocks, and the whole forward equals
+    the unfused model's."""
+    from swinwnet_tpu_torch.models import SwinWNet
+
+    monkeypatch.setattr(BasicLayer, "min_windows", 1)
+    cfg = dict(embed_dim=12, depths=(1, 1, 1, 1), num_heads=(3, 3, 3, 3), error_matrix=True, device="cpu")
+    fused = SwinWNet(**cfg, fused_blocks=True, fused_deep=True)
+    plain = SwinWNet(**cfg, fused_blocks=False)
+    plain.load_state_dict(fused.state_dict())
+    head = fused.upscaler_head
+    assert [blk.fused_route(1, 20, 30) for blk in (head.swin_blocks[0], head.swin_blocks[1])] == ["", ""]
+    x = torch.from_numpy(np.random.default_rng(3).uniform(0, 1, (1, 2, 20, 30)).astype(np.float32))
+    sb.reset_counts()
+    with torch.no_grad():
+        got, want = fused(x), plain(x)
+    assert [k.plain_calls for k in sb.KERNELS] == [15, 12, 0]  # three tower passes of (5, 4)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=0, atol=1e-5 * float(w.abs().max()))

@@ -111,3 +111,16 @@ def test_fused_and_unfused_layers_agree():
         a, b = fused(x), unfused(x)
     assert sb.fused_swin_block_cst.plain_calls == 2
     np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=1e-5 * float(b.abs().max()))
+
+
+def test_dropout_rates_of_zero_build_and_others_raise():
+    """The JAX model's `drop`, `attn_drop` and `drop_path`: 0.0 (every
+    recipe in the repo) builds; dropout itself is not ported yet, so any
+    other rate raises."""
+    from swinwnet_tpu_torch.models import SwinWNet
+
+    cfg = dict(embed_dim=12, depths=(1, 1, 1, 1), num_heads=(3, 3, 3, 3), device="cpu")
+    SwinWNet(**cfg, drop=0.0, attn_drop=0.0, drop_path=0.0)
+    for name in ("drop", "attn_drop", "drop_path"):
+        with pytest.raises(ValueError, match=name):
+            SwinWNet(**cfg, **{name: 0.1})

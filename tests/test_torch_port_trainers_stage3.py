@@ -81,11 +81,12 @@ def test_first_step_gradients_and_moved_parameters(runs, which):
         raise runs[which]["first_error"]
 
 
-@pytest.mark.parametrize("which,want", [("even", [14, 8, 0]), ("odd", [19, 12, 0])])
+@pytest.mark.parametrize("which,want", [("even", [10, 8, 0]), ("odd", [15, 12, 0])])
 def test_the_step_goes_through_the_fused_blocks(runs, which, want):
     """Calls of the (cmajor, rowmajor, nmajor) entry points: a tower pass is
-    (5, 4) and the SR head (4, 0), see tests/test_torch_port_trainers.py;
-    even = segment_1 + upscale, odd adds segment_2."""
+    (5, 4) and the SR head (0, 0): its head widths 2 and 1 stay unfused (see
+    tests/test_torch_port_trainers.py); even = segment_1 + upscale, odd adds
+    segment_2."""
     assert runs[which]["calls"] == want
 
 
