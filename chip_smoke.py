@@ -8,8 +8,9 @@
    instructions and the fp32-FMA body none;
 2. holds each kernel against its plain PyTorch version on the card, in bf16
    and fp32: `fused_swin_block_cst` at the five shapes the serving pipeline
-   gives it and the five the RL step's half-size upscale gives it at B=4
-   (every grid padded), token-major and channels-major; `fused_swin_block`
+   gives it, the five the RL step's half-size upscale gives it at B=4
+   (every grid padded) and SwinUNet's at B=64 (in fp32 the one the gate
+   sends it), token-major and channels-major; `fused_swin_block`
    (row-major) at every signature the gate sends to it with fused_deep in fp32 and with
    one window, one fewer and one more than a CTA takes,
    `fused_swin_block_wide` at its four on-path shapes, each also at a window
@@ -47,12 +48,39 @@
    with launches per step against the gate, every step's reward not 0, the frozen parameters
    unchanged bit for bit, and the reward and distance-gate times by CUDA
    events;
-9. times: per call (with the serving call's device-busy share), per
+9. fp32 at full fp32: under the TF32 flags as found (the script sets none;
+   PyTorch's default lets cuDNN use TF32) and with TF32 switched on, the
+   fp32 patch embedding and segmentation head at the published width agree
+   with float64 within 1e-5 of their max; the control, the same check with
+   the port's `full_fp32` made a no-op and TF32 on, must fail;
+10. the single-tower baselines in bf16 at the published width: SwinUNet at
+   the JAX bench's seg_only_b64_bf16 ([64, 2, 250, 480] uniform(0, 1e3),
+   make_segmentation_fn) and SwinUNetSR ([4, 1, 250, 480] masked
+   synthesized patterns, make_sr_fn, out [4, 1, 500, 960]), 3 requests
+   each: launches per call against the gate (6 and 10 cst), the output
+   against the same weights with fused_blocks=False (PIPE_TOL; SwinUNetSR's
+   against the kernel's plain versions and beside the unfused route against
+   the fp32 model), ms a call, images/s, peak memory, a profile of each;
+   one fp32 SwinUNet call at B=64 (2 cst); cst at the B=64 shapes is held
+   against plain in [2];
+11. the split route: SwinWNetInference(split=True) on the bf16 serving
+   configuration, 3 requests: the 8 stage tensors against split=False,
+   launches per call, ms a call of both routes;
+12. the eval harness: MetricsCalculator over 2 batches of [4, 2, 250, 480]
+   patterns and masks from synthesize_dataset on the published SwinWNet:
+   the three Calculate* methods in fp32 on the kernel route against the
+   plain route sample by sample (segmentation 1e-4, PSNR 1e-3 dB, SSIM
+   1e-5, physics 1e-3 relative, with the peak tables of any sample outside
+   it), launches against the gate; then in bf16 with the notebook
+   convention and an AlphaPolicy: schema, finite values, ms a sample of
+   each method, the results JSON written and read back;
+13. times: per call (with the serving call's device-busy share), per
    training and RL step, and per kernel and on-path shape the kernel, its
    plain version and its bound; for cst and wide the plan, the body it
    takes, its registers and CTAs an SM; for the row-major kernel also the
    same launch with [in, out]-stored weights and the plan of its CTAs; the
-   rebin (segment sums, and index_add_ beside it) and the metrics alone.
+   rebin (segment sums, and index_add_ beside it) and the metrics alone;
+   the baselines', split and harness rows of [10]-[12].
 
 Exits non-zero on any failure. The last lines are one JSON line on the
 kernels, the card's name and power limit (nvidia-smi), and
@@ -65,19 +93,41 @@ import contextlib
 import json
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
-from swinwnet_tpu_torch.models import AlphaPolicy, SwinWNet, apply_action
+import torch.nn.functional as F
+
+from swinwnet_tpu_torch.data import ArrayLoader, synthesize_dataset
+from swinwnet_tpu_torch.evalharness import MetricsCalculator, write_results_json
+from swinwnet_tpu_torch.models import (
+    AlphaPolicy,
+    BasicLayer,
+    ScaleAwarePatchEmbed,
+    SegmentationHead,
+    SwinUNet,
+    SwinUNetSR,
+    SwinWNet,
+    apply_action,
+    init_weights,
+)
+from swinwnet_tpu_torch.models import layers as layers_mod
 from swinwnet_tpu_torch.ops import swin_block as sb
 from swinwnet_tpu_torch.ops.norms import denormalize_piecewise
 from swinwnet_tpu_torch.ops.window import window_pad_mask_np
 from swinwnet_tpu_torch.physics import Qwrapper, d_centers_hr, find_peaks_for_batch, peak_matching_loss
 from swinwnet_tpu_torch.physics import peaks as peaks_mod
 from swinwnet_tpu_torch.physics.device_metrics import diffraction_metrics_device
-from swinwnet_tpu_torch.pipelines import STAGE_NAMES, RLInference, SwinWNetInference
+from swinwnet_tpu_torch.pipelines import (
+    STAGE_NAMES,
+    RLInference,
+    SwinWNetInference,
+    make_segmentation_fn,
+    make_sr_fn,
+)
 from swinwnet_tpu_torch.train import (
     AdamW,
     FullModelTrainer,
@@ -89,6 +139,7 @@ from swinwnet_tpu_torch.train import (
     rl_step,
 )
 from swinwnet_tpu_torch.train import rl as rl_mod
+from swinwnet_tpu_torch.train.trainers import compute_dtype_of
 
 SEED = 0
 RL_SEED = 1  # the fine-tune's model (rl_model)
@@ -165,6 +216,26 @@ RL_LEVELS = [
     ("RL SR level 2", 12, 3, (252, 480), 4),
 ]
 ODD_WINDOWS = 1201  # a prime: no count of windows per CTA divides it
+# the baselines at the published width (core/config.py); SwinUNet at the JAX
+# bench.py's seg_only_b64_bf16 record (bench.py:248-262): batch 64, bf16
+PUBLISHED = dict(patch_size=2, embed_dim=48, depths=(2, 2, 2, 2), num_heads=(3, 6, 12, 24), window_size=5)
+SEG_B = 64
+# SwinUNet's cst launches at SEG_B: (name, C, nH, token grid, launches a bf16
+# call); the masked encoder L1 has 19968 windows
+SEG_LEVELS = [
+    ("B64 encoder L0", 48, 3, (125, 240), 2),
+    ("B64 encoder L1", 96, 6, (63, 120), 2),
+    ("B64 decoder last", 96, 3, (125, 240), 2),
+]
+# the fp32 patch embedding and segmentation head against float64, of their
+# max: full fp32 sums of up to 432 products are good to ~1e-6; TF32 operands
+# (a 10-bit mantissa) are off by ~1e-4 and fail it
+FP32_TOL = 1e-5
+# the eval harness, kernel route against plain route in fp32, per sample: the
+# segmentation scores (a pixel at a threshold may flip), PSNR in dB, SSIM,
+# and the physical metrics relative
+HARNESS_TOL = {"seg": 1e-4, "psnr": 1e-3, "ssim": 1e-5, "phys": 1e-3}
+HARNESS_N = 8  # two batches of B
 # first training step, kernel route against plain route (fp32): the two
 # forwards differ by summation order (~3e-7 relative per block) and the two
 # backwards are the same fp32 reference on inputs that differ that little,
@@ -313,12 +384,14 @@ def report(tag, out, ref, dtype, extra_ok=True):
 
 def check_kernel(dtype, gen):
     """`fused_swin_block_cst` against plain at the five serving shapes (B=1),
-    the five shapes of the RL step's half-size upscale (B=RL_B, padded) and
-    a window count no CTA size divides; returns the largest absolute
-    error."""
+    the five shapes of the RL step's half-size upscale (B=RL_B, padded),
+    SwinUNet's at B=SEG_B that the gate sends to it in `dtype`, and a window
+    count no CTA size divides; returns the largest absolute error."""
     worst = 0.0
     shapes = [(name, C, nH, grid, 1) for name, C, nH, grid, _ in LEVELS]
     shapes += [(name, C, nH, grid, RL_B) for name, C, nH, grid, _ in RL_LEVELS]
+    shapes += [(name, C, nH, grid, SEG_B) for name, C, nH, grid, _ in SEG_LEVELS
+               if C <= (96 if dtype == torch.bfloat16 else 48)]
     for name, C, nH, grid, batch in shapes + [("odd count", 48, 3, (5, 5 * ODD_WINDOWS), 1)]:
         xt, args, mask = level_args(C, nH, grid, batch, dtype, gen)
         for layout, x in (("token-major", xt.permute(2, 1, 0)), ("channels-major", xt.permute(2, 1, 0).contiguous())):
@@ -1129,6 +1202,402 @@ def rl_main_path(rng, lines, n_steps=4):
     return [ms for ms, _ in steps], reward_ms, dist, ranks, total, peak_gb
 
 
+# ---------------------------------------------------------------------------
+# fp32 precision, the single-tower baselines, the split route, the harness
+# ---------------------------------------------------------------------------
+
+
+def fp32_layers_against_float64():
+    """The fp32 patch embedding (conv 2->48, stride 2, LayerNorm) and
+    segmentation head (conv 3x3 48->24, GELU, conv 1x1 24->1, bilinear x2)
+    at the published width on the card, against the same weights in
+    float64; returns the two max errors over max|float64|."""
+    g = torch.Generator().manual_seed(SEED)
+    embed, head = ScaleAwarePatchEmbed(2, 2, 48, torch.float32), SegmentationHead(48, 2, torch.float32)
+    for m in (embed, head):
+        init_weights(m, g)
+        m.cuda()
+    x = (torch.rand(2, 2, H, W, generator=g) * 1e3).cuda()
+    t = torch.randn(2, H // 2, W // 2, 48, generator=g).cuda()
+    with torch.no_grad():
+        got_e, _ = embed(x)
+        got_h = head(t, (H, W))
+        w, b = embed.proj.weight.double(), embed.proj.bias.double()
+        ref_e = F.layer_norm(F.conv2d(x.double(), w, b, stride=2).permute(0, 2, 3, 1), (48,),
+                             embed.norm.weight.double(), embed.norm.bias.double(), 1e-5)
+        c1, c2 = head.seg_head[0], head.seg_head[2]
+        y = F.gelu(F.conv2d(t.double().permute(0, 3, 1, 2), c1.weight.double(), c1.bias.double(), padding=1))
+        ref_h = F.interpolate(F.conv2d(y, c2.weight.double(), c2.bias.double()), scale_factor=2,
+                              mode="bilinear", align_corners=False)
+    return [((a.double() - r).abs().max() / r.abs().max()).item() for a, r in ((got_e, ref_e), (got_h, ref_h))]
+
+
+def check_fp32_precision():
+    """Under the flags as found (PyTorch's defaults: cuDNN may round fp32
+    operands to TF32), and with TF32 switched on for matmuls and
+    convolutions, the port's fp32 layers agree with float64 within FP32_TOL;
+    the control, the same check with `full_fp32` made a no-op and TF32 on,
+    must fail it."""
+    mm, dnn = torch.backends.cuda.matmul, torch.backends.cudnn
+    found = (mm.allow_tf32, dnn.allow_tf32)
+    errs = fp32_layers_against_float64()
+    protect = layers_mod.full_fp32
+    try:
+        mm.allow_tf32 = dnn.allow_tf32 = True
+        errs_on = fp32_layers_against_float64()
+        layers_mod.full_fp32 = lambda dtype=torch.float32: contextlib.nullcontext()
+        control = fp32_layers_against_float64()
+    finally:
+        layers_mod.full_fp32 = protect
+        mm.allow_tf32, dnn.allow_tf32 = found
+    ok = max(errs) <= FP32_TOL and max(errs_on) <= FP32_TOL and max(control) > FP32_TOL
+    print(f"  fp32 patch embedding, segmentation head against float64 (tol {FP32_TOL:.0e} of max): under the flags "
+          f"as found (matmul.allow_tf32={found[0]}, cudnn.allow_tf32={found[1]}) {errs[0]:.2e}, {errs[1]:.2e}; "
+          f"with TF32 on {errs_on[0]:.2e}, {errs_on[1]:.2e}; control, full_fp32 off and TF32 on: {control[0]:.2e}, "
+          f"{control[1]:.2e} (must fail) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("fp32: a layer is not at full fp32, or the control does not fail")
+    return errs, control
+
+
+@contextlib.contextmanager
+def unfused(model):
+    """The model's levels on the unfused blocks, as a model built with
+    fused_blocks=False (the same weights): the plain route of the
+    baselines and the harness."""
+    levels = [m for m in model.modules() if isinstance(m, BasicLayer)]
+    for m in levels:
+        m.fused_blocks = False
+    try:
+        yield
+    finally:
+        for m in levels:
+            m.fused_blocks = True
+
+
+def pipe_compare(tag, got, plain, dtype, relative):
+    """`got` against the plain route at PIPE_TOL, absolute (probabilities)
+    or relative to max|plain|."""
+    tol_max, tol_mean = PIPE_TOL[dtype]
+    a, b = got.float(), plain.float()
+    scale = b.abs().max().item() if relative else 1.0
+    err, mean = (a - b).abs().max().item(), (a - b).abs().mean().item()
+    ok = bool(torch.isfinite(a).all()) and err <= tol_max * scale and mean <= tol_mean * scale
+    print(f"  {tag} kernel vs plain route: max_abs={err:.3e} (tol {tol_max * scale:.3e}) mean_abs={mean:.3e} "
+          f"(tol {tol_mean * scale:.3e}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"{tag}: disagrees with the plain route or is not finite")
+
+
+# SwinUNetSR in bf16: the kernel route may sit no farther from the fp32 model
+# (the same weights) than the unfused blocks' bf16 route does, by this factor
+SR_FP32_RATIO = 1.25
+
+
+def sr_against_fp32(model, fn, request, got, unfused_out):
+    """SwinUNetSR's bf16 output through make_sr_fn on the kernel route:
+    against the kernel's plain versions (the same cast points) at PIPE_TOL's
+    max, and its mean at RL_UPSCALED_MEAN_TOL; and, since the unfused blocks
+    round at other points, against the fp32 model beside the
+    fused_blocks=False route: no farther from it by more than
+    SR_FP32_RATIO, in max and mean.
+
+    The mean is not held at PIPE_TOL's 1e-3: that limit is a tenth of a
+    bf16 step because the pipeline's last stage multiplies the SR output by
+    the seg map, which zeroes most pixels. make_sr_fn's output is the
+    unmasked bf16 SR output put through expm1 and each image's range, so
+    every pixel carries its share of bf16 rounding, and the routes'
+    differences, begun in the first block, are carried through the tower's
+    bf16 layers (1.085e-3 of the max on the card): the limit RL serving
+    holds its unmasked bf16 SR output to, half a bf16 step at the max
+    (RL_UPSCALED_MEAN_TOL, 2^-9), applies."""
+    bf16 = torch.bfloat16
+    with plain_blocks():
+        plain = fn(request)
+    a, b = got.float(), plain.float()
+    scale = b.abs().max().item()
+    err, mean = (a - b).abs().max().item(), (a - b).abs().mean().item()
+    tol_max, tol_mean = PIPE_TOL[bf16][0] * scale, RL_UPSCALED_MEAN_TOL * scale
+    ok = bool(torch.isfinite(a).all()) and err <= tol_max and mean <= tol_mean
+    print(f"  SwinUNetSR output, against the kernel's plain versions: max_abs={err:.3e} (tol {tol_max:.3e}) "
+          f"mean_abs={mean:.3e} (tol {tol_mean:.3e}, {mean / scale:.3e} of the max) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("SwinUNetSR: disagrees with the kernel's plain versions or is not finite")
+    with unfused(model), compute_dtype_of(model, torch.float32):
+        ref = fn(request).float()
+    scale = ref.abs().max().item()
+    dist = {name: ((a.float() - ref).abs().max().item() / scale, (a.float() - ref).abs().mean().item() / scale)
+            for name, a in (("kernel", got), ("fused_blocks=False", unfused_out))}
+    d_ku = (got.float() - unfused_out.float()).abs()
+    ok = all(dist["kernel"][i] <= SR_FP32_RATIO * dist["fused_blocks=False"][i] for i in (0, 1))
+    print(f"  SwinUNetSR output against the fp32 model (same weights), of its max: kernel route max {dist['kernel'][0]:.3e} "
+          f"mean {dist['kernel'][1]:.3e}; fused_blocks=False route max {dist['fused_blocks=False'][0]:.3e} mean "
+          f"{dist['fused_blocks=False'][1]:.3e}; the two bf16 routes apart max {d_ku.max().item() / scale:.3e} mean "
+          f"{d_ku.mean().item() / scale:.3e} (kernel no farther than {SR_FP32_RATIO}x) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("SwinUNetSR: the kernel route is farther from the fp32 model than the unfused bf16 route")
+
+
+def masked_patterns(rng, batch):
+    """[batch, 1, 250, 480] synthesized patterns times their peak masks."""
+    images, masks = synthesize_dataset(batch, seed=int(rng.integers(1 << 30)))
+    return (images * masks)[:, None].astype(np.float32)
+
+
+def serve_baseline(kind, rng, n_calls=3):
+    """SwinUNet through make_segmentation_fn at [SEG_B, 2, 250, 480]
+    uniform(0, 1e3), or SwinUNetSR through make_sr_fn at [B, 1, 250, 480]
+    masked patterns, bf16, fused_blocks: launches per call against the gate,
+    the first output against the plain route. Returns (per-call ms, plain
+    ms, launches in the run, peak GiB, images a call)."""
+    bf16 = torch.bfloat16
+    gen = torch.Generator().manual_seed(SEED)
+    sr = kind == "SwinUNetSR"
+    cls, make_fn, c, batch = (SwinUNetSR, make_sr_fn, 1, B) if sr else (SwinUNet, make_segmentation_fn, 2, SEG_B)
+    model = cls(in_chans=c, fused_blocks=True, dtype=bf16, device="cuda", generator=gen, **PUBLISHED)
+    fn = make_fn(model)
+    if sr:
+        requests = [masked_patterns(rng, batch) for _ in range(n_calls)]
+    else:
+        requests = [rng.uniform(0, 1e3, (batch, c, H, W)).astype(np.float32) for _ in range(n_calls)]
+    fn(requests[0])  # warm-up: cuDNN and allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sb.reset_counts()
+    per_call, call_ms, first = [], [], None
+    for req in requests:
+        before = launches()
+        t0 = time.perf_counter()
+        out = fn(req)
+        torch.cuda.synchronize()
+        call_ms.append((time.perf_counter() - t0) * 1e3)
+        per_call.append([b - a for a, b in zip(before, launches())])
+        if first is None:
+            first = out
+    total = launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    with unfused(model):
+        t0 = time.perf_counter()
+        plain = fn(requests[0])
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+    want = tower_launches((H, W), batch, bf16, False, "cmajor", sr)
+    shape = (batch, 1, 2 * H, 2 * W) if sr else (batch, 1, H, W)
+    if launches() != total or any(n != want for n in per_call) or tuple(first.shape) != shape:
+        raise SystemExit(f"{kind}: launches per call {per_call} (gate: {want}), the plain route launched, "
+                         f"or the output is {tuple(first.shape)} (want {shape})")
+    print(f"  {kind} bf16 [{batch}, {c}, {H}, {W}] -> {list(shape)}: launches per call [cst, row-major, wide] "
+          f"{per_call} (gate: {want})")
+    if sr:
+        sr_against_fp32(model, fn, requests[0], first, plain)
+    else:
+        pipe_compare(f"{kind} output, against fused_blocks=False", first, plain, bf16, relative=False)
+    print(f"  {kind}: per call {', '.join(f'{t:.1f}' for t in call_ms)} ms (mean {np.mean(call_ms):.1f} ms, "
+          f"{batch / np.mean(call_ms) * 1e3:.1f} images/s); plain route {plain_ms:.1f} ms; peak device memory "
+          f"{peak_gb:.2f} GiB")
+    profile_call(lambda: fn(requests[0]), f"one {kind} call, B={batch}")
+    del model, fn
+    return call_ms, plain_ms, total, peak_gb, batch
+
+
+def seg_fp32_call(rng):
+    """One fp32 SwinUNet call through make_segmentation_fn at
+    [SEG_B, 2, 250, 480]: launches against the gate (the fp32 cap sends
+    only C <= 48 to the kernel), a finite output of probabilities. Returns
+    (ms, launches)."""
+    model = SwinUNet(in_chans=2, fused_blocks=True, device="cuda", generator=torch.Generator().manual_seed(SEED),
+                     **PUBLISHED)
+    fn = make_segmentation_fn(model)
+    x = rng.uniform(0, 1e3, (SEG_B, 2, H, W)).astype(np.float32)
+    fn(x)  # warm-up
+    torch.cuda.synchronize()
+    sb.reset_counts()
+    t0 = time.perf_counter()
+    out = fn(x)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    total = launches()
+    want = tower_launches((H, W), SEG_B, torch.float32, False, "cmajor", False)
+    ok = total == want and bool(((out >= 0) & (out <= 1)).all())
+    print(f"  SwinUNet fp32 [{SEG_B}, 2, {H}, {W}]: launches {total} (gate: {want}), probabilities in [0, 1], "
+          f"{ms:.1f} ms {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("SwinUNet fp32: launches differ from the gate's, or the output is not probabilities")
+    del model, fn
+    return ms, total
+
+
+def split_serve(rng, n_calls=3):
+    """SwinWNetInference(split=True) on the bf16 serving configuration: the
+    same stage tensors as split=False, launches per call against the gate,
+    ms a call of both routes. Returns (split ms, single ms, launches in the
+    split run)."""
+    bf16 = torch.bfloat16
+    model = build_model(bf16)
+    single, split = SwinWNetInference(model), SwinWNetInference(model, split=True)
+    requests = [rng.uniform(0, 1e3, (B, 2, H, W)).astype(np.float32) for _ in range(n_calls)]
+    split(requests[0])  # warm-up
+    torch.cuda.synchronize()
+    sb.reset_counts()
+    per_call, split_ms = [], []
+    for req in requests:
+        before = launches()
+        t0 = time.perf_counter()
+        split(req)
+        torch.cuda.synchronize()
+        split_ms.append((time.perf_counter() - t0) * 1e3)
+        per_call.append([b - a for a, b in zip(before, launches())])
+        if req is requests[0]:
+            got = {k: getattr(split, k).clone() for k in STAGE_NAMES}
+    total = launches()
+    single_ms = []
+    for req in requests:
+        t0 = time.perf_counter()
+        single(req)
+        torch.cuda.synchronize()
+        single_ms.append((time.perf_counter() - t0) * 1e3)
+        if req is requests[0]:
+            want = {k: getattr(single, k).clone() for k in STAGE_NAMES}
+    gate = expected_launches("serve", B, bf16, False, "cmajor")
+    if any(n != gate for n in per_call):
+        raise SystemExit(f"split: launches per call {per_call} (gate: {gate})")
+    same = [k for k in STAGE_NAMES if torch.equal(got[k], want[k])]
+    worst = max(((got[k].float() - want[k].float()).abs().max().item(), k) for k in STAGE_NAMES)
+    print(f"  split route: launches per call {per_call} (gate: {gate}); stages equal bit for bit to split=False: "
+          f"{len(same)}/{len(STAGE_NAMES)}, largest difference {worst[0]:.3e} ({worst[1]})")
+    for k in STAGE_NAMES:
+        if k not in same:
+            pipe_compare(f"split {k}", got[k], want[k], bf16, relative=not k.startswith("seg"))
+    print(f"  split route per call {', '.join(f'{t:.1f}' for t in split_ms)} ms (mean {np.mean(split_ms):.1f}); "
+          f"split=False {', '.join(f'{t:.1f}' for t in single_ms)} ms (mean {np.mean(single_ms):.1f})")
+    del model, single, split
+    return split_ms, single_ms, total
+
+
+HARNESS_METHODS = ("CalculateSegmentationMetrics", "CalculateUpscalerMetrics", "CalculatePhysycalMetrics")
+
+
+def run_harness(calc):
+    """The three methods; returns (results by method, ms by method)."""
+    out, ms = {}, {}
+    for m in HARNESS_METHODS:
+        t0 = time.perf_counter()
+        out[m] = getattr(calc, m)()
+        torch.cuda.synchronize()
+        ms[m] = (time.perf_counter() - t0) * 1e3
+    return out, ms
+
+
+def harness_arrays(res):
+    """The harness's per-sample values as named float arrays."""
+    seg, sr, phys = (res[m] for m in HARNESS_METHODS)
+    arrays = {f"seg {r} {t}": np.array([[d[k] for k in d] for d in rows]) for r in seg for t, rows in seg[r].items()}
+    arrays.update({f"{sec} {k}": np.asarray(v) for sec in sr for k, v in sr[sec].items()})
+    arrays.update({f"physics {k}": np.asarray(v) for k, v in phys.items()})
+    return arrays
+
+
+def peak_table(calc, loader_images, b):
+    """The host peak tables of sample b's SR output (HR grid, scale=True) and
+    target (LR grid) on the route in force."""
+    down, _, _, up = calc.sr_forward(loader_images)
+    pred = find_peaks_for_batch(calc.physical.qw_pred.tensor_to_d(up[b:b + 1, 0:1]), scale=True)[0]
+    true = find_peaks_for_batch(calc.physical.qw_true.tensor_to_d(down[b:b + 1, 0:1]), scale=False)[0]
+    fmt = lambda table: [(round(r["d"], 4), round(r["integral_intensity"], 3)) for r in table]
+    return fmt(pred), fmt(true)
+
+
+def check_harness(rng):
+    """MetricsCalculator over HARNESS_N synthesized patterns with their masks
+    (batches of B): the three methods in fp32 on the kernel route against
+    the plain route, sample by sample at HARNESS_TOL, on the published
+    SwinWNet (rl_model's weights, whose SR output has peaks for the physics
+    to match); then in bf16 with the notebook convention and an AlphaPolicy,
+    the schema and finite values, ms a sample by method, and the results
+    written with write_results_json and read back. Returns (ms a sample by
+    method in bf16, launches in the runs)."""
+    images, masks = synthesize_dataset(HARNESS_N, seed=int(rng.integers(1 << 30)))
+    loader = ArrayLoader(images, masks, batch_size=B)
+    model = rl_model()
+    calc = MetricsCalculator(model, loader, verbose=False)
+    sb.reset_counts()
+    kernel, ms32 = run_harness(calc)
+    total = launches()
+    with unfused(model):
+        plain, _ = run_harness(calc)
+    fp32 = torch.float32
+    per_batch = add(expected_launches("serve", B, fp32, False, "cmajor"),
+                    *[expected_launches("stage2", B, fp32, False, "cmajor")] * 2)
+    want = [n * len(loader) for n in per_batch]
+    if launches() != total or total != want:
+        raise SystemExit(f"harness fp32: launches {total} (gate: {want}), or the plain route launched")
+    got_a, want_a = harness_arrays(kernel), harness_arrays(plain)
+    if got_a.keys() != want_a.keys():
+        raise SystemExit("harness: the two routes give different schemas")
+    failed = []
+    for k, w in want_a.items():
+        g = got_a[k]
+        if k.startswith("physics"):
+            bad = np.abs(g - w) > HARNESS_TOL["phys"] * np.abs(w)
+        else:
+            tol = HARNESS_TOL["seg" if k.startswith("seg") else "psnr" if k.endswith("PSNR") else "ssim"]
+            bad = np.abs(g - w) > tol
+        bad = bad.reshape(len(w), -1).any(axis=1)  # per sample
+        worst = float(np.max(np.abs(g - w)))
+        print(f"  harness fp32 {k:42s} n={len(w)} max |kernel - plain| {worst:.3e} "
+              f"{'ok' if not bad.any() else f'FAIL at samples {np.flatnonzero(bad).tolist()}'}")
+        failed += [(k, int(i)) for i in np.flatnonzero(bad)]
+    phys = kernel["CalculatePhysycalMetrics"]
+    nonzero = int(np.sum(np.asarray(phys["integral"]) > 0))
+    print(f"  harness fp32: physics non-zero in {nonzero}/{HARNESS_N} samples; ms by method "
+          + ", ".join(f"{m[9:]} {t:.1f}" for m, t in ms32.items()))
+    for k, i in failed:
+        if k.startswith("physics"):
+            batch_images = loader.images[i // B * B:(i // B + 1) * B]
+            tk = peak_table(calc, batch_images, i % B)
+            with unfused(model):
+                tp = peak_table(calc, batch_images, i % B)
+            print(f"    sample {i} {k}: kernel {got_a[k][i]:.6g} plain {want_a[k][i]:.6g}; peaks (d, integral) kernel "
+                  f"route pred {tk[0]} true {tk[1]}; plain route pred {tp[0]} true {tp[1]}")
+    if failed:
+        raise SystemExit(f"harness fp32: the kernel route disagrees with the plain route at {failed}")
+    del model, calc
+
+    bf16 = torch.bfloat16
+    calc = MetricsCalculator(build_model(bf16), loader, verbose=False, policy=rl_policy(), norm_convention="notebook")
+    sb.reset_counts()
+    res, ms16 = run_harness(calc)
+    total16 = launches()
+    per_batch = add(expected_launches("serve", B, bf16, False, "cmajor"),
+                    *[expected_launches("stage2", B, bf16, False, "cmajor")] * 2)
+    want = [n * len(loader) for n in per_batch]
+    arrays = harness_arrays(res)
+    seg, sr = res[HARNESS_METHODS[0]], res[HARNESS_METHODS[1]]
+    schema = (list(seg) == ["Low Res", "High Res"]
+              and all(list(seg[r]) == ["0.25 thrashold", "0.50 thrashold", "0.75 thrashold"] for r in seg)
+              and list(sr) == ["Summary Metrics", "Only Diffraction Metrics", "Only Error Matrix Metrics"]
+              and list(res[HARNESS_METHODS[2]]) == ["integral", "peak", "shape"]
+              and all(len(a) == HARNESS_N for a in arrays.values()))
+    finite = all(np.isfinite(a).all() for a in arrays.values())
+    with tempfile.TemporaryDirectory() as d:
+        path = f"{d}/metrics.json"
+        payload = {"metrics_50": seg["High Res"]["0.50 thrashold"], "PSNRs": sr["Summary Metrics"]["PSNR"],
+                   "Integral Intensity losses": res[HARNESS_METHODS[2]]["integral"]}
+        write_results_json(path, payload)
+        with open(path) as f:
+            back = json.load(f)
+    round_trip = (back["metrics_50"] == payload["metrics_50"] and back["PSNRs"] == payload["PSNRs"]
+                  and back["Integral Intensity losses"] == payload["Integral Intensity losses"].tolist())
+    per_sample = {m: t / HARNESS_N for m, t in ms16.items()}
+    ok = schema and finite and round_trip and total16 == want
+    print(f"  harness bf16, notebook convention, AlphaPolicy: schema complete {schema}, every value finite {finite}, "
+          f"results JSON read back equal {round_trip}, launches {total16} (gate: {want}); ms a sample "
+          + ", ".join(f"{m[9:]} {t:.1f}" for m, t in per_sample.items()) + f" {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("harness bf16: incomplete schema, a value not finite, the JSON round trip, or launches")
+    return per_sample, add(total, total16)
+
+
 def plan_text(C, nH, dtype, round_qkv=True):
     """A launch's plan, which body it takes, its registers and CTAs an SM."""
     p = sb.kernel_plan(C, nH, dtype, round_qkv)
@@ -1222,9 +1691,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    print("TF32 off: torch.backends.cuda.matmul.allow_tf32 = False, torch.backends.cudnn.allow_tf32 = False")
+    # the flags are left as a user's process finds them: the port runs its
+    # fp32 products at full fp32 itself (core.device.full_fp32)
+    print(f"flags as found: torch.backends.cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}, "
+          f"torch.backends.cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
     print("torch", torch.__version__, "cuda", torch.version.cuda, "device", torch.cuda.get_device_name(0))
     t_start = time.perf_counter()
 
@@ -1291,6 +1761,23 @@ def main() -> int:
     compare_rl_first_steps(rng, lines)
     rl_ms, reward_ms, gate_ms, ranks, total, rl_peak_gb = rl_main_path(rng, lines)
     main_path = add(main_path, total)
+
+    print("[9] fp32 at full fp32 under the flags as found, against float64")
+    fp32_errs, fp32_control = check_fp32_precision()
+    print(f"[10] the single-tower baselines, bf16: SwinUNet at [{SEG_B}, 2, {H}, {W}] through make_segmentation_fn, "
+          f"SwinUNetSR at [{B}, 1, {H}, {W}] through make_sr_fn, 3 requests each")
+    baselines = {}
+    for kind in ("SwinUNet", "SwinUNetSR"):
+        baselines[kind] = serve_baseline(kind, rng)
+        main_path = add(main_path, baselines[kind][2])
+    seg32_ms, total = seg_fp32_call(rng)
+    main_path = add(main_path, total)
+    print(f"[11] the split route: SwinWNetInference(split=True), bf16, 3 requests of [{B}, 2, {H}, {W}]")
+    split_ms, single_ms, total = split_serve(rng)
+    main_path = add(main_path, total)
+    print(f"[12] the eval harness: MetricsCalculator over {HARNESS_N} synthesized patterns, batches of {B}")
+    harness_ms, total = check_harness(rng)
+    main_path = add(main_path, total)
     if min(main_path) == 0:
         raise SystemExit(f"a kernel was launched no time on the main paths: {main_path}")
     if expected_launches("rl", RL_B, bf16, False, "cmajor")[0] != (
@@ -1301,7 +1788,7 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
-    print(f"[9] times on {smi}")
+    print(f"[13] times on {smi}")
     mean_ms = float(np.mean(call_ms))
     wall, busy = PROFILES["one serving call"]
     print(f"  serving bf16 B={B}: per call {', '.join(f'{t:.1f}' for t in call_ms)} ms (mean {mean_ms:.1f} ms, "
@@ -1320,6 +1807,17 @@ def main() -> int:
     print(f"  RL serving bf16 B={RL_B}: per call {', '.join(f'{t:.1f}' for t in rl_call_ms)} ms (mean "
           f"{float(np.mean(rl_call_ms)):.1f} ms); through the plain versions {rl_plain_ms:.1f} ms")
     print("  physics alone: " + "; ".join(f"{k} {v:.4f} ms" for k, v in phys_ms.items()))
+    for kind, (ms, p_ms, _, peak_gb, batch) in baselines.items():
+        print(f"  {kind} bf16 B={batch}: per call {', '.join(f'{t:.1f}' for t in ms)} ms (mean {np.mean(ms):.1f} ms, "
+              f"{batch / np.mean(ms) * 1e3:.1f} images/s); plain route {p_ms:.1f} ms; peak device memory "
+              f"{peak_gb:.2f} GiB")
+    print(f"  SwinUNet fp32 B={SEG_B}: one call {seg32_ms:.1f} ms")
+    print(f"  split serving bf16 B={B}: per call {', '.join(f'{t:.1f}' for t in split_ms)} ms (mean "
+          f"{np.mean(split_ms):.1f}); split=False in the same phase {np.mean(single_ms):.1f} ms")
+    print("  eval harness bf16, notebook, AlphaPolicy, B=4: ms a sample " + ", ".join(
+        f"{m} {t:.1f}" for m, t in harness_ms.items()))
+    print(f"  fp32 layers against float64: patch embedding {fp32_errs[0]:.2e}, segmentation head {fp32_errs[1]:.2e}; "
+          f"the TF32 control {fp32_control[0]:.2e}, {fp32_control[1]:.2e}")
     tot_cst = time_levels(bf16, gen)
     print(f"  cst: one bf16 serving call's {LAUNCHES_PER_CALL[bf16]} launches: kernel {tot_cst['ms']:.3f} ms, "
           f"plain {tot_cst['plain_ms']:.3f} ms")

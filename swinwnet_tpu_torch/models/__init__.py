@@ -14,6 +14,7 @@ from .layers import (
     UpscalingHead,
     WindowAttention,
 )
+from .swin_unet import SwinUNet, SwinUNetSR
 from .swin_wnet import SwinWNet, init_weights
 
 __all__ = [
@@ -31,6 +32,8 @@ __all__ = [
     "UpscalingHead",
     "WindowAttention",
     "SwinWNet",
+    "SwinUNet",
+    "SwinUNetSR",
     "init_weights",
     "AlphaPolicy",
     "apply_action",

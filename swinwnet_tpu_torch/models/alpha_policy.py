@@ -15,14 +15,15 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..core.device import resolve_device
+from ..core.device import full_fp32, resolve_device
 from .swin_wnet import init_weights
 
 
 class AlphaPolicy(nn.Module):
     """Built on `device` (default: the CUDA device; "cpu" only when asked)
     with torch-default initial weights drawn from `generator` (None: a
-    generator seeded with 0). fp32 throughout, as the JAX policy."""
+    generator seeded with 0). fp32 throughout, at full fp32, as the JAX
+    policy."""
 
     def __init__(self, device: Optional[Union[str, torch.device]] = None,
                  generator: Optional[torch.Generator] = None):
@@ -35,6 +36,7 @@ class AlphaPolicy(nn.Module):
         init_weights(self, generator)
         self.to(device)
 
+    @full_fp32()
     def forward(self, x: torch.Tensor):
         """x: [B, 2, H, W] (the normalized masked LR pattern) -> (mu, std), each [B, 1]."""
         y = F.relu(self.conv(x))

@@ -7,7 +7,9 @@
   (`layers.0.blocks.1.attn.qkv.weight`, `mlp.0`/`mlp.3`, `seg_head.0`/`.2`,
   `reconstruction.0`/`.2`, `attn.in_proj_weight`, ...), so upstream `.pth`
   files load as they are.
-* `dtype` is the compute dtype. Products take their operands in it, LayerNorm
+* `dtype` is the compute dtype. Products take their operands in it (in fp32
+  at full fp32, under `core.device.full_fp32`, as the JAX package's
+  `Precision.HIGHEST`), LayerNorm
   statistics and softmax are fp32, and a module's output is in it, with the
   JAX package's one exception: the cross-attention returns fp32
   (`q + gamma * out` with an fp32 gamma), so in bf16 the residual trunks of
@@ -35,6 +37,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..core.device import full_fp32
 from ..ops.resize import bilinear_resize
 from ..ops.swin_block import fused_block_autodiff, kernel_plan
 from ..ops.window import (
@@ -48,9 +51,11 @@ from ..ops.window import (
 
 
 def linear(x: torch.Tensor, lin: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
-    """nn.Linear with operands, product and bias in the compute dtype."""
+    """nn.Linear with operands, product and bias in the compute dtype (fp32
+    at full fp32)."""
     bias = None if lin.bias is None else lin.bias.to(dtype)
-    return F.linear(x.to(dtype), lin.weight.to(dtype), bias)
+    with full_fp32(dtype):
+        return F.linear(x.to(dtype), lin.weight.to(dtype), bias)
 
 
 def layer_norm(x: torch.Tensor, ln: nn.LayerNorm, dtype: torch.dtype) -> torch.Tensor:
@@ -59,7 +64,9 @@ def layer_norm(x: torch.Tensor, ln: nn.LayerNorm, dtype: torch.dtype) -> torch.T
 
 
 def conv2d(x: torch.Tensor, conv: nn.Conv2d, dtype: torch.dtype, **kw) -> torch.Tensor:
-    return F.conv2d(x.to(dtype), conv.weight.to(dtype), conv.bias.to(dtype), **kw)
+    """A cuDNN convolution in the compute dtype (fp32 at full fp32)."""
+    with full_fp32(dtype):
+        return F.conv2d(x.to(dtype), conv.weight.to(dtype), conv.bias.to(dtype), **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -127,9 +134,10 @@ class WindowAttention(nn.Module):
         dt = self.dtype
         qkv = linear(x, self.qkv, dt).reshape(Bw, N, 3, nH, hd).permute(2, 0, 3, 1, 4)
         q, k, v = qkv[0] * torch.tensor(hd ** -0.5, dtype=dt), qkv[1], qkv[2]
-        attn = q.float() @ k.float().transpose(-1, -2) + self.rel_bias()
-        attn = torch.softmax(attn, dim=-1).to(dt)
-        out = (attn.float() @ v.float()).to(dt)  # [Bw, nH, N, hd]
+        with full_fp32(dt):
+            attn = q.float() @ k.float().transpose(-1, -2) + self.rel_bias()
+            attn = torch.softmax(attn, dim=-1).to(dt)
+            out = (attn.float() @ v.float()).to(dt)  # [Bw, nH, N, hd]
         return linear(out.transpose(1, 2).reshape(Bw, N, C), self.proj, dt)
 
 
@@ -512,15 +520,16 @@ class CrossAttentionBlock(nn.Module):
         w, b = self.attn.in_proj_weight, self.attn.in_proj_bias
         qn = layer_norm(q, self.norm_q, dt)
         kvn = layer_norm(kv, self.norm_kv, dt)
-        # bf16 products, fp32 bias: the projections come out fp32, as in JAX
-        qp = F.linear(qn, w[:C].to(dt)).float() + b[:C]
-        kp = F.linear(kvn, w[C:2 * C].to(dt)).float() + b[C:2 * C]
-        vp = F.linear(kvn, w[2 * C:].to(dt)).float() + b[2 * C:]
-        qp = qp.reshape(B, Lq, nH, hd).transpose(1, 2) * hd ** -0.5
-        kp = kp.reshape(B, Lk, nH, hd).transpose(1, 2)
-        vp = vp.reshape(B, Lk, nH, hd).transpose(1, 2)
-        attn = torch.softmax(qp @ kp.transpose(-1, -2), dim=-1).to(dt)
-        out = (attn.float() @ vp).transpose(1, 2).reshape(B, Lq, C).to(dt)
+        with full_fp32(dt):
+            # bf16 products, fp32 bias: the projections come out fp32, as in JAX
+            qp = F.linear(qn, w[:C].to(dt)).float() + b[:C]
+            kp = F.linear(kvn, w[C:2 * C].to(dt)).float() + b[C:2 * C]
+            vp = F.linear(kvn, w[2 * C:].to(dt)).float() + b[2 * C:]
+            qp = qp.reshape(B, Lq, nH, hd).transpose(1, 2) * hd ** -0.5
+            kp = kp.reshape(B, Lk, nH, hd).transpose(1, 2)
+            vp = vp.reshape(B, Lk, nH, hd).transpose(1, 2)
+            attn = torch.softmax(qp @ kp.transpose(-1, -2), dim=-1).to(dt)
+            out = (attn.float() @ vp).transpose(1, 2).reshape(B, Lq, C).to(dt)
         out = linear(out, self.attn.out_proj, dt)
         # fp32 whatever the compute dtype: gamma is fp32, as in the JAX package
         return q.float() + self.gamma * out.float()

@@ -73,9 +73,7 @@ class SwinWNet(nn.Module):
         drop_path: float = 0.0,
     ):
         super().__init__()
-        for name, rate in (("drop", drop), ("attn_drop", attn_drop), ("drop_path", drop_path)):
-            if rate != 0.0:
-                raise ValueError(f"{name}={rate}: the port takes no dropout yet (ROADMAP A.5); only 0.0")
+        check_dropout(drop, attn_drop, drop_path)
         device = resolve_device(device)
         dt = resolve_dtype(dtype)
         self.patch_size, self.error_matrix, self.dtype = patch_size, error_matrix, dt
@@ -146,6 +144,14 @@ class SwinWNet(nn.Module):
         x_b = self.segmentator_bottleneck(skips[-1])
         x_dec = self.segmentator_decoder(x_b, skips)
         return self.segmentator_head(x_dec, padded_res, scale_factor=2), skips
+
+
+def check_dropout(drop: float, attn_drop: float, drop_path: float) -> None:
+    """The models take the JAX models' dropout rates, and only 0: dropout
+    itself is not ported yet (ROADMAP A.5)."""
+    for name, rate in (("drop", drop), ("attn_drop", attn_drop), ("drop_path", drop_path)):
+        if rate != 0.0:
+            raise ValueError(f"{name}={rate}: the port takes no dropout yet (ROADMAP A.5); only 0.0")
 
 
 @torch.no_grad()

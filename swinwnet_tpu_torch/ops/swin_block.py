@@ -41,6 +41,8 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from ..core.device import full_fp32
+
 WINDOW_TOKENS = 25
 
 _SRC = Path(__file__).resolve().parent / "csrc" / "swin_block.cu"
@@ -274,6 +276,7 @@ def _ln(x32, s, b):
     return F.layer_norm(x32, (x32.shape[-1],), s, b, 1e-5)
 
 
+@full_fp32()
 def _block_math(
     x32, mask, ln1_s, ln1_b, wqkv, bqkv, rel_bias, wproj, bproj, ln2_s, ln2_b,
     w1, b1, w2, b2, num_heads: int, dt: torch.dtype, round_qkv: bool,
@@ -281,7 +284,8 @@ def _block_math(
     """One block over fp32 windows x32 [Wt, N, C] with every weight [in, out]
     and mask [Wt, N, 1] or None; returns fp32 [Wt, N, C]. Values feeding a
     product are rounded to `dt` (qkv only when `round_qkv`), products and
-    everything else are fp32. With dt = float32 nothing is rounded."""
+    everything else are fp32, at full fp32. With dt = float32 nothing is
+    rounded."""
 
     def r(t):  # round to the compute dtype, keep fp32
         return t.to(dt).float()

@@ -1,0 +1,77 @@
+"""The 8-stage pipeline as three stages (port of
+`swinwnet_tpu/pipelines/split.py`).
+
+The JAX package compiles segment_1, upscale and segment_2 as three
+executables chained by a thin Python function, to cut peak compile memory,
+and so that a partial pipeline (segmentation-only serving is `stage_a`
+alone) reuses them. Eager PyTorch compiles nothing, so here the stages are
+plain functions, and the 8-stage `inference_stages` is their composition:
+the split route and the single route run the same operations and give the
+same stage tensors, bit for bit.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Dict
+
+import torch
+
+from ..models.swin_wnet import SwinWNet
+from ..ops.norms import denormalize_piecewise, ensure_2ch, normalize_piecewise
+
+
+@torch.inference_mode()
+def stage_a(model: SwinWNet, images: torch.Tensor):
+    """ensure_2ch -> segment_1 -> mask -> normalize: (images, seg_map_lr,
+    images_masked_lr, norm, params_norm, skips_seg)."""
+    images = ensure_2ch(images)
+    seg, skips_seg = model.segment_1(images)
+    seg_map_lr = torch.sigmoid(seg)
+    images_masked_lr = images * seg_map_lr
+    norm, params_norm = normalize_piecewise(images_masked_lr)
+    return images, seg_map_lr, images_masked_lr, norm, params_norm, skips_seg
+
+
+@torch.inference_mode()
+def stage_b(model: SwinWNet, norm: torch.Tensor, params_norm, skips_seg):
+    """upscale -> denormalize: (upscaled_norm, upscaled_denorm, skips_sr)."""
+    upscaled_norm, skips_sr = model.upscale(norm, skips_seg)
+    return upscaled_norm, denormalize_piecewise(upscaled_norm, params_norm), skips_sr
+
+
+@torch.inference_mode()
+def stage_c(model: SwinWNet, upscaled_denorm: torch.Tensor, skips_sr):
+    """segment_2 -> mask: (seg_map_hr, images_masked_hr)."""
+    seg_high, _ = model.segment_2(upscaled_denorm, skips_sr)
+    seg_map_hr = torch.sigmoid(seg_high)
+    return seg_map_hr, upscaled_denorm * seg_map_hr
+
+
+def inference_stages(model: SwinWNet, images: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """The 8 stages for a [B, 1|2, H, W] batch on the model's device: the
+    three stages in turn."""
+    images, seg_map_lr, images_masked_lr, norm, params_norm, skips_seg = stage_a(model, images)
+    upscaled_norm, upscaled_denorm, skips_sr = stage_b(model, norm, params_norm, skips_seg)
+    seg_map_hr, images_masked_hr = stage_c(model, upscaled_denorm, skips_sr)
+    return {
+        "images": images,
+        "seg_map_lr": seg_map_lr,
+        "images_masked_lr": images_masked_lr,
+        "norm": norm,
+        "upscaled_norm": upscaled_norm,
+        "upscaled_denorm": upscaled_denorm,
+        "seg_map_hr": seg_map_hr,
+        "images_masked_hr": images_masked_hr,
+    }
+
+
+def make_split_inference_fn(model: SwinWNet):
+    """`fn(images) -> stages dict` for a [B, 1|2, H, W] batch on the model's
+    device, with the stages bound to `model` as `fn.stage_a`, `fn.stage_b`
+    and `fn.stage_c`."""
+    fn = functools.partial(inference_stages, model)
+    fn.stage_a = functools.partial(stage_a, model)
+    fn.stage_b = functools.partial(stage_b, model)
+    fn.stage_c = functools.partial(stage_c, model)
+    return fn

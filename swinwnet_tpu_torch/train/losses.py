@@ -2,18 +2,13 @@
 
 Segmentation losses take logits [B, 1, H, W] and float targets; SR losses
 are plain regressions. The registries keep the reference's loss names.
-`ssim_loss` carries its own SSIM (torchmetrics defaults: gaussian 11x11,
-sigma 1.5, k1 0.01, k2 0.03, mean over the valid map), as the JAX package's
-comes from its eval harness.
+`ssim_loss` takes its SSIM from the eval harness
+(`evalharness/image_metrics.py`), as the JAX package's does.
 """
 
 from __future__ import annotations
 
-import functools
-
-import numpy as np
 import torch
-import torch.nn.functional as F
 
 
 def bce_with_logits(logits, target, reduction: str = "mean"):
@@ -88,38 +83,11 @@ def smooth_l1_loss(pred, target, beta: float = 1.0):
     return torch.mean(torch.where(d < beta, 0.5 * d * d / beta, d - 0.5 * beta))
 
 
-@functools.lru_cache(maxsize=4)
-def _gaussian_kernel(kernel_size: int, sigma: float) -> np.ndarray:
-    coords = np.arange(kernel_size, dtype=np.float64) - (kernel_size - 1) / 2.0
-    g = np.exp(-(coords ** 2) / (2 * sigma ** 2))
-    g /= g.sum()
-    return np.outer(g, g).astype(np.float32)
-
-
-def ssim(pred, target, data_range: float = 1.0, kernel_size: int = 11, sigma: float = 1.5,
-         k1: float = 0.01, k2: float = 0.03):
-    """Structural similarity of [B, C, H, W] images, mean over the valid map."""
-    pred, target = pred.float(), target.float()
-    kern = torch.from_numpy(_gaussian_kernel(kernel_size, sigma)).to(pred.device)[None, None]
-
-    def blur(x):  # depthwise VALID convolution with the shared kernel
-        B, C, H, W = x.shape
-        y = F.conv2d(x.reshape(B * C, 1, H, W), kern)
-        return y.reshape(B, C, y.shape[2], y.shape[3])
-
-    c1, c2 = (k1 * data_range) ** 2, (k2 * data_range) ** 2
-    mu_p, mu_t = blur(pred), blur(target)
-    sigma_p = blur(pred * pred) - mu_p * mu_p
-    sigma_t = blur(target * target) - mu_t * mu_t
-    sigma_pt = blur(pred * target) - mu_p * mu_t
-    num = (2 * mu_p * mu_t + c1) * (2 * sigma_pt + c2)
-    den = (mu_p ** 2 + mu_t ** 2 + c1) * (sigma_p + sigma_t + c2)
-    return torch.mean(num / den)
-
-
 def ssim_loss(pred, target, data_range: float = 1.0):
     """1 - SSIM on normalized patterns clamped to [0, 1]. Clamping zeroes the
     gradient outside [0, 1]; pair it with a pixel loss for coverage there."""
+    from ..evalharness.image_metrics import ssim
+
     return 1.0 - ssim(torch.clamp(pred, 0.0, 1.0), torch.clamp(target, 0.0, 1.0), data_range=data_range)
 
 

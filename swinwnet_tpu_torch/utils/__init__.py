@@ -1,4 +1,7 @@
 from .checkpoint import latest_checkpoint, load_checkpoint, save_checkpoint
+from .debug import assert_finite_pytree, nan_check
 from .logging import MetricsLogger
+from .profiling import StageTimer, trace_context
 
-__all__ = ["latest_checkpoint", "load_checkpoint", "save_checkpoint", "MetricsLogger"]
+__all__ = ["latest_checkpoint", "load_checkpoint", "save_checkpoint", "MetricsLogger", "nan_check",
+           "assert_finite_pytree", "trace_context", "StageTimer"]

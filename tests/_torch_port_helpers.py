@@ -30,8 +30,14 @@ def jax_params(seed=0, gamma=0.5, cfg=None):
     """Random JAX params for the small SwinWNet (or `cfg`), drawn with numpy;
     the four cross-attention gammas are set to `gamma` so that those blocks
     are live."""
-    model = JaxSwinWNet(**(cfg or CFG))
-    shapes = jax.eval_shape(model.init, jax.random.PRNGKey(0), np.zeros((1, 2, H, W), np.float32))
+    return draw_params(JaxSwinWNet(**(cfg or CFG)), (1, 2, H, W), seed, gamma)
+
+
+def draw_params(model, input_shape, seed=0, gamma=0.5):
+    """Random params for the JAX `model` applied to `input_shape`, drawn with
+    numpy: kernels N(0, 1/fan_in), LayerNorm scales near 1, the rest small;
+    cross-attention gammas `gamma`."""
+    shapes = jax.eval_shape(model.init, jax.random.PRNGKey(0), np.zeros(input_shape, np.float32))
     rng = np.random.default_rng(seed)
 
     def draw(path, leaf):
@@ -96,3 +102,26 @@ def flat(tree):
     for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]:
         out["/".join(str(k.key) for k in path)] = np.asarray(leaf)
     return out
+
+
+# the eval harness's tests: the tiny SwinWNet of the JAX package's own
+# harness test (tests/test_evalharness.py) at 40x40, and batches of 2 from
+# synthesize_dataset with their masks
+HARNESS_CFG = dict(patch_size=2, in_chans=1, error_matrix=True, embed_dim=12, depths=(1, 1, 1, 1),
+                   num_heads=(3, 6, 12, 24), window_size=5)
+HARNESS_HW = 40
+
+
+def harness_setup(seed=7, n=4, batch=2):
+    """(JAX model, JAX params, port model on the CPU with the same weights,
+    the JAX ArrayLoader, the port's ArrayLoader) over the same images."""
+    from swinwnet_tpu.data import ArrayLoader as JaxArrayLoader
+    from swinwnet_tpu_torch.data import ArrayLoader, synthesize_dataset
+
+    jmodel = JaxSwinWNet(**HARNESS_CFG)
+    params = draw_params(jmodel, (1, 2, HARNESS_HW, HARNESS_HW), seed)
+    port = TorchSwinWNet(**HARNESS_CFG, device="cpu")
+    port.load_state_dict(state_dict_from_jax(params), strict=True)
+    images, masks = synthesize_dataset(n, H=HARNESS_HW, W=HARNESS_HW, seed=seed)
+    return (jmodel, params, port, JaxArrayLoader(images, masks, batch_size=batch),
+            ArrayLoader(images, masks, batch_size=batch))

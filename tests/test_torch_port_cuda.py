@@ -1,5 +1,6 @@
-"""The CUDA kernels against their plain versions, and the differentiable
-block's gradients, on the card (marked `cuda`;
+"""The CUDA kernels against their plain versions, the differentiable
+block's gradients, and the fp32 layers against float64 under any TF32
+flags, on the card (marked `cuda`;
 skipped where no CUDA device is present). Runs with
 `python -m pytest --noconftest tests/test_torch_port_cuda.py -q` on a
 machine with an H100 (tests/conftest.py imports JAX); chip_smoke.py holds
@@ -22,7 +23,6 @@ N = 25
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -51,6 +51,94 @@ def test_kernel_matches_plain(cuda, C, nH, grid, dtype):
     ref = sb.swin_block_plain(x, *args, num_heads=nH, pad_mask=mask)
     tol = (1e-4 if dtype == torch.float32 else 2e-2) * ref.float().abs().max().item()
     assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,nH,Wt,masked,dtype", [(48, 3, 76800, False, torch.bfloat16),
+                                                  (96, 6, 19968, True, torch.bfloat16),
+                                                  (96, 3, 76800, False, torch.bfloat16),
+                                                  (48, 3, 76800, False, torch.float32)])
+def test_kernel_at_the_seg_only_b64_shapes(cuda, C, nH, Wt, masked, dtype):
+    """The cst launches of SwinUNet at [64, 2, 250, 480] (the JAX bench's
+    seg_only_b64_bf16): encoder L0, encoder L1 with the pad mask of its
+    63x120 grid, the last decoder stage; in fp32 the gate sends only the
+    first to the kernel."""
+    g = torch.Generator().manual_seed(C + nH)
+    A = lambda *s: torch.randn(*s, generator=g) * 0.05
+    args = [torch.rand(C, generator=g) + 0.5, A(C), A(3 * C, C).to(dtype), A(3 * C), A(nH, N, N),
+            A(C, C).to(dtype), A(C), torch.rand(C, generator=g) + 0.5, A(C),
+            A(4 * C, C).to(dtype), A(4 * C), A(C, 4 * C).to(dtype), A(C)]
+    args = [a.to(cuda) for a in args]
+    mask = None
+    if masked:
+        mask = torch.from_numpy(np.tile(window_pad_mask_np(63, 120, 5)[:, :, 0], (64, 1))).to(cuda).t()
+        assert mask.shape == (N, Wt)
+    x = torch.randn(Wt, N, C, generator=g).to(dtype).to(cuda).permute(2, 1, 0)
+    out = sb.fused_swin_block_cst(x, *args, num_heads=nH, pad_mask=mask)
+    ref = sb.swin_block_plain(x, *args, num_heads=nH, pad_mask=mask)
+    tol = (1e-4 if dtype == torch.float32 else 2e-2) * ref.float().abs().max().item()
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+def _fp32_layers_against_float64(cuda):
+    """The fp32 patch embedding (conv 2->48, stride 2, then LayerNorm) and
+    segmentation head (conv 3x3 48->24, GELU, conv 1x1 24->1, bilinear x2)
+    of the published width on the card, against the same weights in float64;
+    returns the two max errors over max|float64|."""
+    import torch.nn.functional as F
+
+    from swinwnet_tpu_torch.models import ScaleAwarePatchEmbed, SegmentationHead, init_weights
+
+    g = torch.Generator().manual_seed(0)
+    embed, head = ScaleAwarePatchEmbed(2, 2, 48, torch.float32), SegmentationHead(48, 2, torch.float32)
+    for m in (embed, head):
+        init_weights(m, g)
+        m.to(cuda)
+    x = (torch.rand(2, 2, 250, 480, generator=g) * 1e3).to(cuda)
+    t = torch.randn(2, 125, 240, 48, generator=g).to(cuda)
+    with torch.no_grad():
+        got_e, _ = embed(x)
+        got_h = head(t, (250, 480))
+        w, b = embed.proj.weight.double(), embed.proj.bias.double()
+        ref_e = F.layer_norm(F.conv2d(x.double(), w, b, stride=2).permute(0, 2, 3, 1), (48,),
+                             embed.norm.weight.double(), embed.norm.bias.double(), 1e-5)
+        c1, c2 = head.seg_head[0], head.seg_head[2]
+        y = F.gelu(F.conv2d(t.double().permute(0, 3, 1, 2), c1.weight.double(), c1.bias.double(), padding=1))
+        y = F.conv2d(y, c2.weight.double(), c2.bias.double())
+        ref_h = F.interpolate(y, scale_factor=2, mode="bilinear", align_corners=False)
+    return [((a.double() - r).abs().max() / r.abs().max()).item() for a, r in ((got_e, ref_e), (got_h, ref_h))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flags", ["default", "tf32 on"])
+def test_fp32_layers_stay_fp32_whatever_the_flags(cuda, flags):
+    """Under PyTorch's default flags (cuDNN may use TF32) and with TF32 on
+    for matmuls and convolutions, the port's fp32 layers agree with float64
+    within 1e-5 of their max: they run their products under full_fp32."""
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    try:
+        if flags == "tf32 on":
+            torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+        errs = _fp32_layers_against_float64(cuda)
+        assert (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32) == (
+            (True, True) if flags == "tf32 on" else saved)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+    assert max(errs) <= 1e-5, errs
+
+
+@pytest.mark.cuda
+def test_fp32_check_fails_with_tf32_forced_on(cuda, monkeypatch):
+    """The control: with full_fp32 made a no-op and TF32 on, the same check
+    fails, so it can see TF32."""
+    import contextlib
+
+    from swinwnet_tpu_torch.models import layers
+
+    monkeypatch.setattr(layers, "full_fp32", lambda dtype=torch.float32: contextlib.nullcontext())
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    assert max(_fp32_layers_against_float64(cuda)) > 1e-5
 
 
 def _operands(cuda, C, nH, dtype, seed, linear_layout):

@@ -1,8 +1,9 @@
 """The port stands alone: every module of `swinwnet_tpu_torch` imports, and
-it builds a model, serves a request, trains the three stages, serves an RL
-request and takes an RL step, with jax, flax, optax, orbax and the JAX
-package refused by an import hook; and its entry points never quietly fall
-back to the CPU."""
+it builds a model, serves a request (also through the split route), trains
+the three stages, serves an RL request, takes an RL step, runs the
+baselines' pipelines and the eval harness on synthesized data, with jax,
+flax, optax, orbax and the JAX package refused by an import hook; and its
+entry points never quietly fall back to the CPU."""
 
 import subprocess
 import sys
@@ -30,13 +31,15 @@ import swinwnet_tpu_torch
 import importlib, pkgutil
 for info in pkgutil.walk_packages(swinwnet_tpu_torch.__path__, "swinwnet_tpu_torch."):
     importlib.import_module(info.name)  # every module of the port, the new ones too
-from swinwnet_tpu_torch import compat, core, models, ops, physics, pipelines, train, utils
+from swinwnet_tpu_torch import compat, core, data, evalharness, models, ops, physics, pipelines, train, utils
 for name in ("ops.resize", "ops.norms", "ops.window", "ops.swin_block", "models.layers", "models.swin_wnet",
              "train.losses", "train.schedule", "train.freeze", "train.trainers", "train.pipeline",
              "utils.logging", "utils.checkpoint", "compat.torch_import", "pipelines.inference",
              "physics.host_oracle", "physics.qwrapper", "physics.emd", "physics.peaks",
              "physics.device_metrics", "physics.metrics", "physics.legacy", "models.alpha_policy",
-             "pipelines.rl_inference", "train.rl"):
+             "pipelines.rl_inference", "train.rl", "data.generation", "data.noise", "data.loaders",
+             "evalharness.image_metrics", "evalharness.harness", "evalharness.regression", "evalharness.plots",
+             "utils.debug", "utils.profiling", "models.swin_unet", "pipelines.simple", "pipelines.split"):
     assert "swinwnet_tpu_torch." + name in sys.modules, name
 m = models.SwinWNet(embed_dim=12, depths=(1, 1, 1, 1), num_heads=(3, 3, 3, 3),
                     error_matrix=True, fused_blocks=True, device="cpu")
@@ -51,6 +54,18 @@ out = pipelines.RLInference(m, policy)(torch.rand(1, 1, 20, 30))
 assert out.shape == (1, 2, 40, 60), out.shape
 rl = train.RLTrainer(m, policy, [torch.rand(2, 1, 20, 30) * 1e3], num_epochs=1, verbose=False)
 assert set(rl.train_epoch()) >= {"reward", "policy_loss", "sup_loss"}
+out = pipelines.SwinWNetInference(m, split=True)(torch.rand(1, 1, 20, 30))
+assert out.shape == (1, 2, 40, 60), out.shape
+unet = models.SwinUNet(in_chans=2, embed_dim=12, depths=(1, 1, 1, 1), num_heads=(3, 3, 3, 3), device="cpu")
+assert pipelines.make_segmentation_fn(unet)(torch.rand(1, 2, 20, 30)).shape == (1, 1, 20, 30)
+sr = models.SwinUNetSR(embed_dim=12, depths=(1, 1, 1, 1), num_heads=(3, 3, 3, 3), device="cpu")
+assert pipelines.make_sr_fn(sr)(torch.rand(1, 1, 20, 30)).shape == (1, 1, 40, 60)
+images, masks = data.synthesize_dataset(2, H=20, W=30, seed=0)
+calc = evalharness.MetricsCalculator(m, data.ArrayLoader(images, masks, batch_size=2), verbose=False)
+assert len(calc.CalculateSegmentationMetrics()["High Res"]["0.50 thrashold"]) == 2
+assert len(calc.CalculatePhysycalMetrics()["shape"]) == 2
+with utils.nan_check(m):
+    utils.assert_finite_pytree(m.state_dict(), "params")
 bad = [n for n in sys.modules if n.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "swinwnet_tpu")]
 assert not bad, bad
 print("ok")
@@ -66,11 +81,14 @@ def test_imports_with_jax_and_jax_package_blocked():
 
 def test_entry_points_need_a_card_unless_cpu_is_asked(monkeypatch):
     from swinwnet_tpu_torch.core import resolve_device
-    from swinwnet_tpu_torch.models import SwinWNet
+    from swinwnet_tpu_torch.models import SwinUNet, SwinUNetSR, SwinWNet
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         SwinWNet(embed_dim=12, num_heads=(3, 3, 3, 3))
+    for baseline in (SwinUNet, SwinUNetSR):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            baseline(embed_dim=12, num_heads=(3, 3, 3, 3))
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device("cuda:0")
     assert resolve_device("cpu").type == "cpu"
