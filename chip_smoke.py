@@ -74,13 +74,33 @@
    it), launches against the gate; then in bf16 with the notebook
    convention and an AlphaPolicy: schema, finite values, ms a sample of
    each method, the results JSON written and read back;
-13. times: per call (with the serving call's device-busy share), per
+13. the viewer CLI, the user's entry point, at the published width in fp32
+   on 6 synthesize_dataset patterns (the held-out set's size) from an
+   upstream-format .pth ({"state_dict": {"module." + k: v}}) and a raw and
+   a dict .npy: `python -m swinwnet_tpu_torch.apps.viewer` as a subprocess
+   (exit 0, 8 stage .npy and 2 CSVs), then `viewer.main(argv)` in-process
+   three times: launches per call against the gate (10 cst), the 8 stages
+   against the same weights at fused_blocks=False (PIPE_TOL), both CSVs
+   against a float64 bincount of the saved stages (1e-5), error_matrix
+   sniffed; then ViewerModel's load_weights -> load_npy -> run_inference ->
+   export_csv, the CLI's stages bit for bit;
+14. the C++ NativeBatcher, built with g++, feeding SegmentatorTrainer one
+   epoch of 24 synthesize_dataset patterns in batches of 8 with the train
+   noise, fp32, fused_blocks and fused_deep: launches per step against the
+   gate ([2, 14, 0]), finite losses; two batchers with one seed give the
+   same batches; the eval-noise protocol gives N(100, 20);
+15. the renderer's calibration: detect_table, extract_crystal_spec and
+   refine_crystal_spec(iters=2) on a render_calibrated pattern with the
+   rebin on the card and on the CPU give the same peaks (d within one bin);
+16. times: per call (with the serving call's device-busy share), per
    training and RL step, and per kernel and on-path shape the kernel, its
    plain version and its bound; for cst and wide the plan, the body it
    takes, its registers and CTAs an SM; for the row-major kernel also the
    same launch with [in, out]-stored weights and the plan of its CTAs; the
    rebin (segment sums, and index_add_ beside it) and the metrics alone;
-   the baselines', split and harness rows of [10]-[12].
+   the baselines', split and harness rows of [10]-[12]; the viewer's ms a
+   call and images/s, the batcher's ms a batch against ArrayLoader and the
+   steps it fed, the calibration's ms on each device.
 
 Exits non-zero on any failure. The last lines are one JSON line on the
 kernels, the card's name and power limit (nvidia-smi), and
@@ -90,7 +110,11 @@ kernels, the card's name and power limit (nvidia-smi), and
 from __future__ import annotations
 
 import contextlib
+import cProfile
+import io
 import json
+import os
+import pstats
 import subprocess
 import sys
 import tempfile
@@ -101,7 +125,22 @@ import torch
 
 import torch.nn.functional as F
 
-from swinwnet_tpu_torch.data import ArrayLoader, synthesize_dataset
+from swinwnet_tpu_torch.apps import viewer
+from swinwnet_tpu_torch.apps.viewer import ViewerSession
+from swinwnet_tpu_torch.apps.viewer_state import ViewerModel
+from swinwnet_tpu_torch.compat import load_pth
+from swinwnet_tpu_torch.data import (
+    ArrayLoader,
+    NativeBatcher,
+    detect_table,
+    extract_crystal_spec,
+    make_train_noise_augment,
+    refine_crystal_spec,
+    render_calibrated,
+    synthesize_dataset,
+    synthesize_pattern,
+)
+from swinwnet_tpu_torch.data import native_loader
 from swinwnet_tpu_torch.evalharness import MetricsCalculator, write_results_json
 from swinwnet_tpu_torch.models import (
     AlphaPolicy,
@@ -118,7 +157,7 @@ from swinwnet_tpu_torch.models import layers as layers_mod
 from swinwnet_tpu_torch.ops import swin_block as sb
 from swinwnet_tpu_torch.ops.norms import denormalize_piecewise
 from swinwnet_tpu_torch.ops.window import window_pad_mask_np
-from swinwnet_tpu_torch.physics import Qwrapper, d_centers_hr, find_peaks_for_batch, peak_matching_loss
+from swinwnet_tpu_torch.physics import Qwrapper, d_centers_hr, d_centers_lr, find_peaks_for_batch, peak_matching_loss
 from swinwnet_tpu_torch.physics import peaks as peaks_mod
 from swinwnet_tpu_torch.physics.device_metrics import diffraction_metrics_device
 from swinwnet_tpu_torch.pipelines import (
@@ -248,6 +287,14 @@ TRAIN_LOSS_RTOL, TRAIN_GRAD_TOL, TRAIN_SCALAR_GRAD_TOL = 1e-5, 1e-3, 2e-2
 # any indexing fault; the device metrics against the host scipy oracle with
 # the tolerance of tests/test_physics_device.py
 REBIN_RTOL, METRIC_TOL = 1e-5, 2e-3
+# the viewer CLI: the published held-out set's size, fp32 (the JAX viewer's
+# precision), timed calls; its I(d) CSVs against a float64 bincount of the
+# saved stages, each column within 1e-5 of its max (fp32 sums of up to a few
+# hundred pixels a bin, written with Python's float repr)
+VIEW_B, VIEW_CALLS, CSV_RTOL = 6, 3, 1e-5
+# the batcher-fed stage-1 epoch: 24 patterns, batches of TRAIN_B (3 steps);
+# batches timed from NativeBatcher.next() and from ArrayLoader
+BATCHER_N, BATCHER_TIMED = 24, 9
 
 
 def n_windows(grid, batch):
@@ -1598,6 +1645,278 @@ def check_harness(rng):
     return per_sample, add(total, total16)
 
 
+# ---------------------------------------------------------------------------
+# The user's entry points and the rest of the data feed
+# ---------------------------------------------------------------------------
+
+
+def stage_check(tag, got, want, dtype):
+    """Every stage of `got` against `want` at PIPE_TOL[dtype]: the seg maps
+    absolutely, the other stages relative to their max; returns the worst
+    (max, mean) error as fractions of their limits."""
+    tol_max, tol_mean = PIPE_TOL[dtype]
+    worst = (0.0, 0.0)
+    for k in STAGE_NAMES:
+        a, b = np.asarray(got[k], np.float64), np.asarray(want[k], np.float64)
+        if a.shape != b.shape or not np.isfinite(a).all():
+            raise SystemExit(f"{tag}: stage {k} has shape {a.shape} (want {b.shape}) or non-finite values")
+        scale = 1.0 if k.startswith("seg") else max(np.abs(b).max(), 1e-30)
+        err, mean = np.abs(a - b).max() / scale, np.abs(a - b).mean() / scale
+        worst = (max(worst[0], err / tol_max), max(worst[1], mean / tol_mean))
+        if err > tol_max or mean > tol_mean:
+            raise SystemExit(f"{tag}: stage {k} max {err:.3e} mean {mean:.3e} of its scale, over PIPE_TOL {PIPE_TOL[dtype]}")
+    return worst
+
+
+def check_viewer_csv(path, stage, centers, n_images):
+    """The CSV's I(d) columns against a float64 bincount rebin of the saved
+    stage's diffraction channel on the host, each within CSV_RTOL of its max."""
+    with open(path) as f:
+        header = f.readline().strip().split(",")
+    table = np.loadtxt(path, delimiter=",", skiprows=1, ndmin=2)
+    qw = Qwrapper(fixed_centers=centers, device="cpu")
+    idx = qw._indices_for(*stage.shape[2:])
+    want = np.stack([np.bincount(idx, weights=img[0].ravel().astype(np.float64), minlength=qw.n_bins + 1)[:qw.n_bins]
+                     for img in stage])
+    if header != ["d"] + [f"I_{i}" for i in range(n_images)] or table.shape != (qw.n_bins, n_images + 1):
+        raise SystemExit(f"viewer: {path} has header {header[:3]}... and shape {table.shape}")
+    err = float((np.abs(table[:, 1:] - want.T).max(axis=0) / np.abs(want).max(axis=1)).max())
+    if not np.allclose(table[:, 0], qw.centers, rtol=1e-6, atol=0) or err > CSV_RTOL:
+        raise SystemExit(f"viewer: {path} differs from the bincount rebin by {err:.2e} of a column's max")
+    return err
+
+
+def viewer_main_path(rng):
+    """The viewer CLI at the published width in fp32 on VIEW_B synthesized
+    patterns: as a subprocess (`python -m swinwnet_tpu_torch.apps.viewer`),
+    then `main(argv)` in-process under the launch counters against the plain
+    route and a bincount rebin, then ViewerModel's flow; times VIEW_CALLS
+    calls. Returns (ms a main() call, ms a session call, (ms to build the
+    model from the .pth, ms to write the stages), subprocess s, launches)."""
+    model = build_model(torch.float32)
+    images, _ = synthesize_dataset(VIEW_B, seed=int(rng.integers(1 << 30)))
+    with tempfile.TemporaryDirectory() as tmp:
+        pth, raw, packed = f"{tmp}/m.pth", f"{tmp}/raw.npy", f"{tmp}/dict.npy"
+        torch.save({"state_dict": {"module." + k: v.cpu() for k, v in model.state_dict().items()}}, pth)
+        np.save(raw, images)
+        np.save(packed, {"images": images, "name": "held-out"}, allow_pickle=True)
+        files = sorted([f"{k}.npy" for k in STAGE_NAMES] + ["input_id_curves.csv", "masked_hr_id_curves.csv"])
+
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-m", "swinwnet_tpu_torch.apps.viewer", "--weights", pth,
+                              "--input", raw, "--out", f"{tmp}/cli"], capture_output=True, text=True, timeout=300)
+        cli_s = time.perf_counter() - t0
+        ok = res.returncode == 0 and sorted(os.listdir(f"{tmp}/cli")) == files
+        print(f"  python -m swinwnet_tpu_torch.apps.viewer (subprocess, {VIEW_B} images of {H}x{W}): exit "
+              f"{res.returncode} in {cli_s:.1f} s, {len(files)} files {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"viewer CLI subprocess failed:\n{res.stdout}\n{res.stderr}")
+
+        argv = ["--weights", pth, "--input", packed, "--out", f"{tmp}/main"]
+        want = expected_launches("serve", VIEW_B, torch.float32, False, "cmajor")
+        log = io.StringIO()
+        per_call, call_ms = [], []
+        sb.reset_counts()
+        for _ in range(VIEW_CALLS):
+            before = launches()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(log):
+                viewer.main(argv)
+            torch.cuda.synchronize()
+            call_ms.append((time.perf_counter() - t0) * 1e3)
+            per_call.append([b - a for a, b in zip(before, launches())])
+        total = launches()
+        # where the rest of a call goes, by function: one more call under cProfile
+        prof = cProfile.Profile()
+        with contextlib.redirect_stdout(log):
+            prof.runcall(viewer.main, argv)
+        torch.cuda.synchronize()
+        table = io.StringIO()
+        pstats.Stats(prof, stream=table).strip_dirs().sort_stats("cumulative").print_stats(14)
+        print("  one viewer.main call under cProfile, by cumulative host time:")
+        for line in table.getvalue().splitlines():
+            if "(" in line and ":" in line:
+                print("    " + line.strip()[:150])
+        stages = {k: np.load(f"{tmp}/main/{k}.npy") for k in STAGE_NAMES}
+        cli = {k: np.load(f"{tmp}/cli/{k}.npy") for k in STAGE_NAMES}
+        sniffed = "error_matrix=True" in log.getvalue()
+        if any(n != want for n in per_call) or not sniffed:
+            raise SystemExit(f"viewer main: launches per call {per_call} (gate: {want}); error_matrix sniffed: {sniffed}")
+        # the subprocess read the raw .npy, main() the dict one: the same
+        # images; another process may take other library algorithms
+        same_as_cli = all(np.array_equal(stages[k], cli[k]) for k in STAGE_NAMES)
+        if not same_as_cli:
+            stage_check("viewer main vs the subprocess", stages, cli, torch.float32)
+
+        plain_model = SwinWNet(in_chans=1, error_matrix=True, fused_blocks=False, device="cuda", **PUBLISHED)
+        plain_model.load_state_dict(load_pth(pth))
+        plain = ViewerSession(plain_model).run(images)
+        worst = stage_check("viewer main vs fused_blocks=False", stages, plain, torch.float32)
+        errs = [check_viewer_csv(f"{tmp}/main/input_id_curves.csv", stages["images"], d_centers_lr, VIEW_B),
+                check_viewer_csv(f"{tmp}/main/masked_hr_id_curves.csv", stages["images_masked_hr"], d_centers_hr, VIEW_B)]
+        print(f"  viewer.main in-process x{VIEW_CALLS}: launches per call {per_call} (gate: {want}), error_matrix "
+              f"sniffed True; 8 stages against fused_blocks=False at {worst[0]:.2f} / {worst[1]:.2f} of PIPE_TOL "
+              f"(max / mean); I(d) CSVs against a float64 bincount of the saved stages {errs[0]:.1e}, {errs[1]:.1e} "
+              f"of a column's max (tol {CSV_RTOL:.0e}); the subprocess's stages "
+              f"{'bit for bit' if same_as_cli else 'within PIPE_TOL, not bit for bit'} ok")
+
+        vm = ViewerModel()
+        vm.load_weights(pth)
+        sb.reset_counts()
+        if not (vm.load_npy(packed) and vm.run_inference()):
+            raise SystemExit(f"ViewerModel: {vm.status}")
+        total = add(total, launches())
+        for k in ("images", "images_masked_hr"):
+            vm.toggle_stage_selected(k, True)
+        n_csv = vm.export_csv(f"{tmp}/model.csv")
+        # where a main() call's time goes: the model built from the .pth, and
+        # the 8 stage arrays written
+        t0 = time.perf_counter()
+        viewer.load_model_any(pth)
+        torch.cuda.synchronize()
+        load_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        for k in STAGE_NAMES:
+            np.save(f"{tmp}/{k}.npy", stages[k])
+        write_ms = (time.perf_counter() - t0) * 1e3
+        bits = all(np.array_equal(vm.data[k], stages[k]) for k in STAGE_NAMES)
+        if not bits:  # hold it at PIPE_TOL and say by how much it differs
+            stage_check("ViewerModel vs the CLI", vm.data, stages, torch.float32)
+        ok = vm.error_matrix is True and n_csv == 2 and vm.stage_order == list(STAGE_NAMES)
+        print(f"  ViewerModel load_weights -> load_npy -> run_inference -> export_csv: {n_csv} series, stages "
+              f"{'bit for bit the CLI' if bits else 'NOT bit for bit the CLI (within PIPE_TOL)'}; "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit("ViewerModel: the flow did not give the CLI's stages and two CSV series")
+
+    session = ViewerSession(model)
+    session_ms = []
+    for _ in range(VIEW_CALLS + 1):
+        t0 = time.perf_counter()
+        out = session.run(images)
+        session.curves(out["images"]), session.curves(out["images_masked_hr"], high_res=True)
+        torch.cuda.synchronize()
+        session_ms.append((time.perf_counter() - t0) * 1e3)
+    profile_call(lambda: session.run(images), f"one viewer call, B={VIEW_B}, fp32")
+    del model, plain_model, vm, session
+    return call_ms, session_ms[1:], (load_ms, write_ms), cli_s, total
+
+
+def batcher_main_path(rng):
+    """NativeBatcher feeding SegmentatorTrainer one epoch of BATCHER_N
+    synthesized patterns (batches of TRAIN_B, the train-noise protocol) in
+    fp32 with fused_blocks and fused_deep; its determinism, the eval-noise
+    protocol, ms a batch against ArrayLoader, and the steps each feeds, in
+    turns. Returns (build s, step ms, {loader: step ms in the turns}, batch
+    ms, ArrayLoader batch ms, launches)."""
+    t0 = time.perf_counter()
+    lib = native_loader.build()
+    build_s = time.perf_counter() - t0
+    print(f"  built {lib.name} in {build_s:.2f} s")
+    images, masks = synthesize_dataset(BATCHER_N, seed=int(rng.integers(1 << 30)))
+    model = build_model(torch.float32, fused_deep=True).train()
+    nb = NativeBatcher(images, masks, batch_size=TRAIN_B, add_noise=True, seed=SEED)
+    loader = ProbeLoader(nb, model)
+    trainer = SegmentatorTrainer(model, loader, num_epochs=1, warmup_epochs=1, verbose=False)
+    losses, step = [], trainer.train_step
+
+    def noted_step(*batch):
+        losses.append(step(*batch))
+        return losses[-1]
+
+    trainer.train_step = noted_step
+    sb.reset_counts()
+    trainer.train()
+    total = launches()
+    nb.close()
+    steps = loader.steps(0)
+    want = expected_launches("stage1", TRAIN_B, torch.float32, True, "cmajor")
+    finite = len(losses) == BATCHER_N // TRAIN_B and all(bool(torch.isfinite(v)) for v in losses)
+    ok = finite and [n for _, n in steps] == [want] * (BATCHER_N // TRAIN_B)
+    print(f"  SegmentatorTrainer, one epoch from NativeBatcher: {len(steps)} steps, launches per step "
+          f"{[n for _, n in steps]} (gate: {want}), losses {[round(float(v), 5) for v in losses]} "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("batcher-fed stage 1: launches differ from the gate's or a loss is not finite")
+    # the steps fed by each loader, in turns on the same model: ArrayLoader
+    # (the same augmentation, on the trainer's thread), NativeBatcher, ...
+    turns = {"ArrayLoader": [], "NativeBatcher": []}
+    for kind in ("ArrayLoader", "NativeBatcher") * 2:
+        feed = (ArrayLoader(images, masks, batch_size=TRAIN_B, shuffle=True, augment=make_train_noise_augment())
+                if kind == "ArrayLoader" else NativeBatcher(images, masks, batch_size=TRAIN_B, add_noise=True, seed=SEED))
+        probe = ProbeLoader(feed, model)
+        SegmentatorTrainer(model, probe, num_epochs=1, warmup_epochs=1, verbose=False).train()
+        turns[kind] += [ms for ms, _ in probe.steps(0)]
+        if kind == "NativeBatcher":
+            feed.close()
+
+    a, b = (NativeBatcher(images, masks, batch_size=TRAIN_B, add_noise=True, seed=SEED) for _ in range(2))
+    same = all(all(np.array_equal(x, y) for x, y in zip(a.next(), b.next())) for _ in range(2 * len(a)))
+    batch_ms = []
+    for _ in range(BATCHER_TIMED):
+        t0 = time.perf_counter()
+        a.next()
+        batch_ms.append((time.perf_counter() - t0) * 1e3)
+    a.close()
+    b.close()
+    ev = NativeBatcher(np.zeros((TRAIN_B, H, W), np.float32), None, batch_size=TRAIN_B, shuffle=False, add_noise=True,
+                       noise_mu_range=(100.0, 100.0), sigma_frac=0.2, seed=1)
+    x = ev.next()[0]
+    ev.close()
+    mu, sd = float(x.mean()), float(x.std())
+    ref = ArrayLoader(images, masks, batch_size=TRAIN_B, shuffle=True, augment=make_train_noise_augment())
+    ref_ms = []
+    while len(ref_ms) < BATCHER_TIMED:
+        t0 = time.perf_counter()
+        for _ in ref:
+            ref_ms.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+    ok = same and abs(mu - 100.0) < 1.0 and abs(sd - 20.0) < 1.0
+    print(f"  two batchers with one seed: {2 * len(nb)} batches identical {same}; the eval-noise protocol on "
+          f"[{TRAIN_B}, {H}, {W}] zeros: mean {mu:.3f}, std {sd:.3f} (N(100, 20), within 1) "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("NativeBatcher: not deterministic, or the eval-noise protocol is off")
+    del model, trainer
+    return build_s, [ms for ms, _ in steps], turns, batch_ms, ref_ms, total
+
+
+def check_calibration():
+    """detect_table, extract_crystal_spec and refine_crystal_spec(iters=2)
+    on a render_calibrated pattern with the Qwrapper on the card and on the
+    CPU: the same peaks, d within one LR bin. Returns ms by device."""
+    d_list, inten = [0.62, 1.2, 2.1, 3.3, 4.6], [0.5, 1.0, 0.6, 0.8, 0.4]
+    img = render_calibrated(d_list, inten, seed=SEED)
+    clean = synthesize_pattern(d_list, inten, seed=None, background=0.0)
+    mask = (clean > clean.max() * 5e-3).astype(np.float32)
+
+    def run(device):
+        table = detect_table(img, mask, device=device)
+        spec = extract_crystal_spec(img, mask, device=device)
+        return table, spec, refine_crystal_spec(spec, img, mask, iters=2, device=device)
+
+    out, ms = {}, {}
+    for dev in ("cuda", "cpu"):
+        run(dev)  # warm-up: index maps, allocator
+        t0 = time.perf_counter()
+        out[dev] = run(dev)
+        torch.cuda.synchronize()
+        ms[dev] = (time.perf_counter() - t0) * 1e3
+    bin_lr = float(d_centers_lr[1] - d_centers_lr[0])
+    (tc, sc, rc), (tp, sp, rp) = out["cuda"], out["cpu"]
+    d_table = lambda t: np.array([p["d_com"] for p in t])
+    pairs = [(d_table(tc), d_table(tp)), (sc["d"], sp["d"]), (np.asarray(rc["d"]), np.asarray(rp["d"]))]
+    ok = all(len(a) == len(b) > 0 for a, b in pairs)
+    worst = max(float(np.abs(a - b).max()) for a, b in pairs) if ok else np.inf
+    ok = ok and worst <= bin_lr
+    print(f"  calibration on a render_calibrated [{H}, {W}] pattern: {len(tc)} peaks in the table, {len(sc['d'])} in "
+          f"the spec, {len(rc['d'])} arcs refined (iters=2); cuda against cpu: d within {worst:.2e} A (one LR bin "
+          f"{bin_lr:.2e}); {ms['cuda']:.1f} ms on cuda, {ms['cpu']:.1f} ms on cpu {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("calibration: the card's peak tables differ from the CPU's")
+    return ms
+
+
 def plan_text(C, nH, dtype, round_qkv=True):
     """A launch's plan, which body it takes, its registers and CTAs an SM."""
     p = sb.kernel_plan(C, nH, dtype, round_qkv)
@@ -1778,6 +2097,14 @@ def main() -> int:
     print(f"[12] the eval harness: MetricsCalculator over {HARNESS_N} synthesized patterns, batches of {B}")
     harness_ms, total = check_harness(rng)
     main_path = add(main_path, total)
+    print(f"[13] the viewer CLI, fp32, {VIEW_B} synthesized patterns of [{H}, {W}], the published width")
+    view_ms, view_session_ms, (view_load_ms, view_write_ms), view_cli_s, total = viewer_main_path(rng)
+    main_path = add(main_path, total)
+    print(f"[14] NativeBatcher feeding stage 1, fp32, fused_deep, {BATCHER_N} patterns in batches of {TRAIN_B}")
+    b_build_s, b_step_ms, b_turns, b_ms, al_ms, total = batcher_main_path(rng)
+    main_path = add(main_path, total)
+    print("[15] the renderer's calibration with the rebin on the card and on the CPU")
+    cal_ms = check_calibration()
     if min(main_path) == 0:
         raise SystemExit(f"a kernel was launched no time on the main paths: {main_path}")
     if expected_launches("rl", RL_B, bf16, False, "cmajor")[0] != (
@@ -1788,7 +2115,7 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
-    print(f"[13] times on {smi}")
+    print(f"[16] times on {smi}")
     mean_ms = float(np.mean(call_ms))
     wall, busy = PROFILES["one serving call"]
     print(f"  serving bf16 B={B}: per call {', '.join(f'{t:.1f}' for t in call_ms)} ms (mean {mean_ms:.1f} ms, "
@@ -1816,6 +2143,20 @@ def main() -> int:
           f"{np.mean(split_ms):.1f}); split=False in the same phase {np.mean(single_ms):.1f} ms")
     print("  eval harness bf16, notebook, AlphaPolicy, B=4: ms a sample " + ", ".join(
         f"{m} {t:.1f}" for m, t in harness_ms.items()))
+    mean = lambda ts: float(np.mean(ts))
+    print(f"  viewer CLI fp32 B={VIEW_B}: main() per call {', '.join(f'{t:.1f}' for t in view_ms)} ms (mean "
+          f"{mean(view_ms):.1f} ms, {VIEW_B / mean(view_ms) * 1e3:.2f} images/s; of a call, load_model_any "
+          f"{view_load_ms:.1f} ms and writing the 8 stages {view_write_ms:.1f} ms); "
+          f"ViewerSession.run and the two rebins {', '.join(f'{t:.1f}' for t in view_session_ms)} ms (mean "
+          f"{mean(view_session_ms):.1f} ms, {VIEW_B / mean(view_session_ms) * 1e3:.2f} images/s); the subprocess "
+          f"{view_cli_s:.1f} s end to end")
+    print(f"  NativeBatcher: g++ build {b_build_s:.2f} s; next() {mean(b_ms):.3f} ms a batch of [{TRAIN_B}, 1, {H}, "
+          f"{W}] with the train noise (ArrayLoader with make_train_noise_augment {mean(al_ms):.3f} ms); stage-1 "
+          f"steps fed by it {[round(t, 1) for t in b_step_ms]} ms (mean after the first {warm(b_step_ms):.1f}; "
+          f"phase [4]'s stage 1 {warm(step_ms['stage1']):.1f}); two epochs each in turns: " + "; ".join(
+              f"{k} {[round(t, 1) for t in v]} (mean {mean(v):.1f})" for k, v in b_turns.items()))
+    print(f"  calibration (detect_table, extract_crystal_spec, refine_crystal_spec iters=2): {cal_ms['cuda']:.1f} ms "
+          f"with the rebin on cuda, {cal_ms['cpu']:.1f} ms on cpu")
     print(f"  fp32 layers against float64: patch embedding {fp32_errs[0]:.2e}, segmentation head {fp32_errs[1]:.2e}; "
           f"the TF32 control {fp32_control[0]:.2e}, {fp32_control[1]:.2e}")
     tot_cst = time_levels(bf16, gen)

@@ -50,9 +50,14 @@ def sniff_error_matrix(state_dict: Mapping[str, Any]) -> bool:
     return w is not None and int(w.shape[1]) >= 2
 
 
-def load_pth(path: str) -> Dict[str, torch.Tensor]:
-    """An upstream `.pth` as a port state dict (on the CPU)."""
-    obj = torch.load(path, map_location="cpu", weights_only=True)
+def load_pth(path: str, weights_only: bool = True) -> Dict[str, torch.Tensor]:
+    """An upstream `.pth` as a port state dict (on the CPU): a raw state
+    dict, a `{"state_dict": ...}`-style wrapper with `module.` prefixes, or
+    (with `weights_only=False`, which unpickles arbitrary objects) a pickled
+    `nn.Module`."""
+    obj = torch.load(path, map_location="cpu", weights_only=weights_only)
+    if isinstance(obj, torch.nn.Module):
+        obj = obj.state_dict()
     return unwrap_state_dict(obj)
 
 

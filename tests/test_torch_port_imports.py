@@ -1,9 +1,10 @@
 """The port stands alone: every module of `swinwnet_tpu_torch` imports, and
 it builds a model, serves a request (also through the split route), trains
 the three stages, serves an RL request, takes an RL step, runs the
-baselines' pipelines and the eval harness on synthesized data, with jax,
-flax, optax, orbax and the JAX package refused by an import hook; and its
-entry points never quietly fall back to the CPU."""
+baselines' pipelines and the eval harness on synthesized data, runs the
+viewer CLI, the labeler, the C++ batcher, the calibration and the McStas
+spec, with jax, flax, optax, orbax and the JAX package refused by an import
+hook; and its entry points never quietly fall back to the CPU."""
 
 import subprocess
 import sys
@@ -31,7 +32,7 @@ import swinwnet_tpu_torch
 import importlib, pkgutil
 for info in pkgutil.walk_packages(swinwnet_tpu_torch.__path__, "swinwnet_tpu_torch."):
     importlib.import_module(info.name)  # every module of the port, the new ones too
-from swinwnet_tpu_torch import compat, core, data, evalharness, models, ops, physics, pipelines, train, utils
+from swinwnet_tpu_torch import apps, compat, core, data, evalharness, models, ops, physics, pipelines, train, utils
 for name in ("ops.resize", "ops.norms", "ops.window", "ops.swin_block", "models.layers", "models.swin_wnet",
              "train.losses", "train.schedule", "train.freeze", "train.trainers", "train.pipeline",
              "utils.logging", "utils.checkpoint", "compat.torch_import", "pipelines.inference",
@@ -39,7 +40,9 @@ for name in ("ops.resize", "ops.norms", "ops.window", "ops.swin_block", "models.
              "physics.device_metrics", "physics.metrics", "physics.legacy", "models.alpha_policy",
              "pipelines.rl_inference", "train.rl", "data.generation", "data.noise", "data.loaders",
              "evalharness.image_metrics", "evalharness.harness", "evalharness.regression", "evalharness.plots",
-             "utils.debug", "utils.profiling", "models.swin_unet", "pipelines.simple", "pipelines.split"):
+             "utils.debug", "utils.profiling", "models.swin_unet", "pipelines.simple", "pipelines.split",
+             "apps.viewer", "apps.viewer_state", "apps.labeler", "apps.labeler_state", "apps.gui",
+             "data.native_loader", "data.real", "data.calibration", "data.mcstas"):
     assert "swinwnet_tpu_torch." + name in sys.modules, name
 m = models.SwinWNet(embed_dim=12, depths=(1, 1, 1, 1), num_heads=(3, 3, 3, 3),
                     error_matrix=True, fused_blocks=True, device="cpu")
@@ -66,6 +69,30 @@ assert len(calc.CalculateSegmentationMetrics()["High Res"]["0.50 thrashold"]) ==
 assert len(calc.CalculatePhysycalMetrics()["shape"]) == 2
 with utils.nan_check(m):
     utils.assert_finite_pytree(m.state_dict(), "params")
+import os, tempfile
+import numpy as np
+from swinwnet_tpu_torch.apps import gui, labeler_state, viewer
+from swinwnet_tpu_torch.data import calibration, mcstas
+with tempfile.TemporaryDirectory() as tmp:
+    pub = models.SwinWNet(error_matrix=True, device="cpu")
+    torch.save({"state_dict": {"module." + k: v for k, v in pub.state_dict().items()}}, tmp + "/m.pth")
+    np.save(tmp + "/p.npy", data.synthesize_pattern([1.5, 3.0], [1.0, 0.7], H=20, W=30, seed=1))
+    viewer.main(["--weights", tmp + "/m.pth", "--input", tmp + "/p.npy", "--out", tmp + "/out", "--device", "cpu"])
+    assert len(os.listdir(tmp + "/out")) == 10, os.listdir(tmp + "/out")
+    lab = labeler_state.LabelerModel(device="cpu")
+    np.save(tmp + "/d.npy", images)
+    lab.load_npy(tmp + "/d.npy")
+    assert lab.profile()[1].sum() > 0 and apps.labeler.label_batch(images, [[(1.0, 2.0)], []]).shape == images.shape
+nb = data.NativeBatcher(images, masks, batch_size=2, add_noise=True)
+assert next(iter(nb))[0].shape == (2, 1, 20, 30)
+nb.close()
+img = calibration.render_calibrated([1.2, 3.3], [1.0, 0.8], seed=4)
+assert calibration.detect_table(img, device="cpu")
+assert mcstas.dif60_spec('"Si.laz"', 100.0).detector_component == "Detector"
+try:
+    gui.build_viewer_window()
+except ImportError as e:
+    assert "PySide6" in str(e)
 bad = [n for n in sys.modules if n.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "swinwnet_tpu")]
 assert not bad, bad
 print("ok")
@@ -112,3 +139,35 @@ def test_rl_and_physics_entry_points_need_a_card_unless_cpu_is_asked(monkeypatch
     images = np.ones((1, 1, 10, 12), np.float32)
     with pytest.raises(RuntimeError, match="CUDA"):
         DiffractionMetricsCalculator(np.linspace(0.05, 7.49, 160), np.linspace(0.05, 7.49, 160))(images, images)
+
+
+def test_apps_and_calibration_need_a_card_unless_cpu_is_asked(monkeypatch, tmp_path):
+    import numpy as np
+
+    from swinwnet_tpu_torch.apps.labeler_state import LabelerModel
+    from swinwnet_tpu_torch.apps.viewer import load_model_any
+    from swinwnet_tpu_torch.apps.viewer_state import ViewerModel
+    from swinwnet_tpu_torch.data.calibration import detect_table, extract_crystal_spec
+
+    pth = tmp_path / "m.pth"
+    torch.save({}, pth)
+    npy = tmp_path / "d.npy"
+    np.save(npy, np.ones((1, 10, 12), np.float32))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        load_model_any(str(pth))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ViewerModel().load_weights(str(pth))
+    viewer = ViewerModel()
+    assert viewer.load_npy(str(npy))
+    viewer.toggle_stage_selected("images", True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        viewer.curves()
+    labeler = LabelerModel()
+    labeler.load_npy(str(npy))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        labeler.profile()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        detect_table(np.ones((10, 12), np.float32))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        extract_crystal_spec(np.ones((10, 12), np.float32))
