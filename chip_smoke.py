@@ -101,6 +101,21 @@
    the baselines', split and harness rows of [10]-[12]; the viewer's ms a
    call and images/s, the batcher's ms a batch against ArrayLoader and the
    steps it fed, the calibration's ms on each device.
+17. the model's remaining features at the published width: one stage-3
+   odd step in fp32 at [8, 2, 250, 480] without fused_deep (the JAX
+   default: the C = 96-384 levels unfused) with remat and without, from
+   the same weights (loss, gradients, cst launches against the gate, peak
+   memory and time of each); drop = attn_drop = drop_path = 0.1: a bf16
+   serving call at deterministic=True equal bit for bit to the rates-0
+   model's with its 22 cst, a deterministic=False stage-3 odd step at B=2
+   with no launch, one seed one loss and two seeds two, remat's gradients
+   against the plain step's and a control with other masks, the keep
+   fraction of an [8, 2, 250, 480] draw; a shifted BasicLayer on cuda
+   against the CPU at encoder L0's grid and at one that does not tile;
+   attn_chunk=64 against unchunked on an unfused level;
+18. data parallelism: dryrun_multichip over NCCL on every card, then two
+   gloo ranks on one card at [2, 2, 250, 480] against one process on the
+   full batch (loss, gradients, updated parameters, HR IoU).
 
 Exits non-zero on any failure. The last lines are one JSON line on the
 kernels, the card's name and power limit (nvidia-smi), and
@@ -155,7 +170,10 @@ from swinwnet_tpu_torch.models import (
 )
 from swinwnet_tpu_torch.models import layers as layers_mod
 from swinwnet_tpu_torch.ops import swin_block as sb
-from swinwnet_tpu_torch.ops.norms import denormalize_piecewise
+from swinwnet_tpu_torch.ops.norms import denormalize_piecewise, ensure_2ch
+from swinwnet_tpu_torch.parallel import dryrun as dryrun_mod
+from swinwnet_tpu_torch.parallel import dryrun_multichip
+from swinwnet_tpu_torch.parallel.dryrun import dryrun_batch
 from swinwnet_tpu_torch.ops.window import window_pad_mask_np
 from swinwnet_tpu_torch.physics import Qwrapper, d_centers_hr, d_centers_lr, find_peaks_for_batch, peak_matching_loss
 from swinwnet_tpu_torch.physics import peaks as peaks_mod
@@ -174,11 +192,13 @@ from swinwnet_tpu_torch.train import (
     SegmentatorTrainer,
     SwinWNetTrainingPipeline,
     UpscalerTrainer,
+    combined_loss,
     masked_adamw,
     rl_step,
+    smooth_l1_loss,
 )
 from swinwnet_tpu_torch.train import rl as rl_mod
-from swinwnet_tpu_torch.train.trainers import compute_dtype_of
+from swinwnet_tpu_torch.train.trainers import compute_dtype_of, stage3_odd_loss
 
 SEED = 0
 RL_SEED = 1  # the fine-tune's model (rl_model)
@@ -295,6 +315,23 @@ VIEW_B, VIEW_CALLS, CSV_RTOL = 6, 3, 1e-5
 # the batcher-fed stage-1 epoch: 24 patterns, batches of TRAIN_B (3 steps);
 # batches timed from NativeBatcher.next() and from ArrayLoader
 BATCHER_N, BATCHER_TIMED = 24, 9
+# remat against none (fp32 on the card): the recompute repeats the
+# forward's arithmetic, so the loss to 1e-6 relative and each gradient to
+# 1e-5 of its leaf's max, or to twice the largest gap between two runs of
+# the plain step where that is larger: atomic adds in the backward (the
+# bilinear resize's) sum in any order, and two plain steps measured up to
+# 1.93e-5 of a leaf's max apart. With dropout, where two plain steps
+# measured up to 3.46e-5 apart (B=2), remat's gradients are held to
+# TRAIN_GRAD_TOL against a control with other masks that must exceed it
+REMAT_LOSS_RTOL, REMAT_GRAD_TOL = 1e-6, 1e-5
+DROP_RATES = dict(drop=0.1, attn_drop=0.1, drop_path=0.1)
+# the dropout step runs every level unfused, the SR head's 500x960-token
+# levels too: a smaller batch keeps its activations well inside the card
+DROP_B = 2
+# a shifted level on cuda against cpu, and attn_chunk against none: fp32
+# sums in other orders, 1e-5 of max
+SHIFT_TOL = 1e-5
+ADAM_EPS = 1e-8  # train.freeze.AdamW's
 
 
 def n_windows(grid, batch):
@@ -1917,6 +1954,288 @@ def check_calibration():
     return ms
 
 
+# ---------------------------------------------------------------------------
+# [17] the model's remaining features, [18] data parallelism
+# ---------------------------------------------------------------------------
+
+
+def leaf_gaps(got, want):
+    """Each leaf's max|got - want| over its max|want|."""
+    gaps = {}
+    for k, g in want.items():
+        scale = g.abs().max().item()
+        diff = (got[k] - g).abs().max().item()
+        gaps[k] = diff / scale if scale else diff
+    return gaps
+
+
+def grad_gap(got, want):
+    """The worst leaf's max|got - want| over its max|want|, and its name."""
+    gaps = leaf_gaps(got, want)
+    name = max(gaps, key=gaps.get)
+    return gaps[name], name
+
+
+def remat_agrees(remat, plain, again):
+    """Remat's gradients against the plain step's, leaf by leaf: within
+    REMAT_GRAD_TOL of the leaf's max, or within twice the largest gap
+    between two runs of the plain step (the backward's atomic adds, as in
+    the bilinear resize's, sum in any order, and a leaf's gap between two
+    runs is one draw of that noise). A recompute that dropped other
+    elements than the forward would be off by far more. Returns (ok,
+    report)."""
+    gaps, spread = leaf_gaps(remat, plain), leaf_gaps(again, plain)
+    floor = 2 * max(spread.values())
+    over = [k for k, g in gaps.items() if g > max(REMAT_GRAD_TOL, floor)]
+    worst, rr = max(gaps, key=gaps.get), max(spread, key=spread.get)
+    above = sum(g > REMAT_GRAD_TOL for g in gaps.values())
+    return not over and remat.keys() == plain.keys(), (
+        f"worst {gaps[worst]:.2e} of its max ({worst}); the plain step run twice differs by up to "
+        f"{spread[rr]:.2e} ({rr}); {above} leaves above {REMAT_GRAD_TOL:.0e}, {len(over)} above twice the "
+        f"largest run-to-run gap")
+
+
+def grads_of(model):
+    return {k: p.grad.detach().clone() for k, p in model.named_parameters() if p.grad is not None}
+
+
+def remat_steps(batch):
+    """One stage-3 odd step in fp32 at TRAIN_B without fused_deep (the JAX
+    default: the C = 96-384 levels unfused), with remat and without, from
+    the same weights; then a second step of each, timed, with its peak
+    memory. Returns the launches."""
+    want = expected_launches("stage3_odd", TRAIN_B, torch.float32, False, "cmajor")
+    runs, total = {}, [0, 0, 0]
+    for key in ("plain", "plain again", "remat"):
+        model = build_model(torch.float32, remat=key == "remat").train()
+        trainer = FullModelTrainer(model, [batch], num_epochs=1, warmup_epochs=1, verbose=False)
+        sb.reset_counts()
+        loss = float(trainer.train_step(*batch, even=False)["loss"])
+        torch.cuda.synchronize()
+        n = launches()
+        grads = grads_of(model)
+        ms = peak = None
+        if key != "plain again":
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            trainer.train_step(*batch, even=False)
+            torch.cuda.synchronize()
+            ms, peak = (time.perf_counter() - t0) * 1e3, torch.cuda.max_memory_allocated() / 2 ** 30
+        runs[key] = (loss, grads, n, ms, peak)
+        total = add(total, launches())
+        del model, trainer
+    (l0, g0, n0, ms0, m0), (l1, g1, n1, ms1, m1) = runs["plain"], runs["remat"]
+    same, report = remat_agrees(g1, g0, runs["plain again"][1])
+    rel = abs(l1 - l0) / abs(l0)
+    ok = np.isfinite(l0) and rel <= REMAT_LOSS_RTOL and same and n0 == n1 == runs["plain again"][2] == want
+    print(f"  remat, stage-3 odd step fp32 B={TRAIN_B} without fused_deep: loss {l1:.6f} vs {l0:.6f} without "
+          f"(rel {rel:.1e}, tol {REMAT_LOSS_RTOL:.0e}); {len(g0)} gradients, {report}; launches {n1} and {n0} "
+          f"(gate: {want}) {'ok' if ok else 'FAIL'}")
+    print(f"  second step: remat {ms1:.1f} ms, peak {m1:.2f} GiB; without {ms0:.1f} ms, peak {m0:.2f} GiB")
+    if not ok:
+        raise SystemExit("remat: the step disagrees with the step without it")
+    return total
+
+
+def dropout_step(model, images, masks, seed):
+    """stage3_odd_loss at deterministic=False with a generator on the card
+    seeded `seed`, and its backward: (loss, gradients, launches)."""
+    model.zero_grad(set_to_none=True)
+    before = launches()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    total, _ = stage3_odd_loss(model, combined_loss, smooth_l1_loss, (1.0, 1.0, 1.0), images, masks,
+                               deterministic=False, generator=gen)
+    total.backward()
+    torch.cuda.synchronize()
+    return float(total.detach()), grads_of(model), [b - a for a, b in zip(before, launches())]
+
+
+def dropout_checks(rng):
+    """drop = attn_drop = drop_path = 0.1: at deterministic=True a bf16
+    serving call equals the rates-0 model's bit for bit through the gate's
+    launches; at deterministic=False nothing fuses, one seed gives one loss,
+    two seeds two, remat repeats the forward's masks; the keep fraction of
+    one [8, 2, 250, 480] draw. Returns the launches."""
+    request = rng.uniform(0, 1e3, (B, 2, H, W)).astype(np.float32)
+    stages, total = {}, [0, 0, 0]
+    for rates in ({}, DROP_RATES):
+        infer = SwinWNetInference(build_model(torch.bfloat16, **rates))
+        infer(request)
+        torch.cuda.synchronize()
+        sb.reset_counts()
+        infer(request)
+        torch.cuda.synchronize()
+        stages[bool(rates)] = ({k: getattr(infer, k).clone() for k in STAGE_NAMES}, launches())
+        total = add(total, launches())
+        del infer
+    same = all(torch.equal(stages[True][0][k], stages[False][0][k]) for k in STAGE_NAMES)
+    want = [LAUNCHES_PER_CALL[torch.bfloat16], 0, 0]
+    ok = same and stages[True][1] == stages[False][1] == want
+    print(f"  deterministic=True, bf16 B={B}: the 8 stages of the rates-0.1 model equal the rates-0 model's bit "
+          f"for bit: {same}; launches {stages[True][1]} and {stages[False][1]} (gate: {want}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("dropout at deterministic=True changed the serving call")
+
+    images, masks = training_batches(1, DROP_B, rng)[0]
+    images = ensure_2ch(torch.from_numpy(images).cuda())
+    masks = torch.from_numpy(masks).cuda()[:, None]
+    runs = {}
+    for remat in (False, True):
+        model = build_model(torch.float32, remat=remat, **DROP_RATES).train()
+        t0 = time.perf_counter()
+        runs[remat] = dropout_step(model, images, masks, seed=0)
+        ms = (time.perf_counter() - t0) * 1e3
+        runs[remat] += (ms,)
+        if remat:  # the control: other masks, as a recompute that redrew them would have
+            g_other = dropout_step(model, images, masks, seed=1)[1]
+        else:
+            again, g_again, _ = dropout_step(model, images, masks, seed=0)
+            other = dropout_step(model, images, masks, seed=1)[0]
+        del model
+    (l0, g0, n0, ms0), (l1, g1, n1, ms1) = runs[False], runs[True]
+    gap, name = grad_gap(g1, g0)
+    spread, control = grad_gap(g_again, g0)[0], grad_gap(g_other, g0)[0]
+    rel = abs(l1 - l0) / abs(l0)
+    ok = (np.isfinite(l0) and n0 == n1 == [0, 0, 0] and again == l0 and other != l0
+          and rel <= REMAT_LOSS_RTOL and g1.keys() == g0.keys() and gap <= TRAIN_GRAD_TOL < control)
+    print(f"  deterministic=False, stage-3 odd step fp32 B={DROP_B}: loss {l0:.6f} (seed 0), {again:.6f} (seed 0 "
+          f"again), {other:.6f} (seed 1); launches {n0}; with remat loss {l1:.6f} (rel {rel:.1e}), gradients worst "
+          f"{gap:.2e} of its max ({name}; tol {TRAIN_GRAD_TOL:.0e}; the plain step run twice {spread:.2e}); the "
+          f"control, remat with seed 1's masks, {control:.2e} {'ok' if ok else 'FAIL'}")
+    print(f"  the dropout step {ms0:.1f} ms, with remat {ms1:.1f} ms (first steps)")
+    if not ok:
+        raise SystemExit("dropout at deterministic=False: a check failed")
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    kept = (layers_mod.dropout(torch.ones(TRAIN_B, 2, H, W, device="cuda"), 0.1, False, gen) != 0)
+    frac = kept.float().mean().item()
+    print(f"  kept fraction of one [{TRAIN_B}, 2, {H}, {W}] draw at rate 0.1: {frac:.5f} "
+          f"{'ok' if abs(frac - 0.9) <= 0.005 else 'FAIL'}")
+    if abs(frac - 0.9) > 0.005:
+        raise SystemExit("dropout keeps the wrong fraction")
+    return total
+
+
+def shift_and_chunk_checks():
+    """A shifted level on the card against the same module on the CPU, at
+    encoder L0's grid and at one that does not tile; attn_chunk=64 against
+    unchunked on an unfused level, with their times."""
+    gen = torch.Generator().manual_seed(SEED)
+    layer = BasicLayer(48, 2, 3, shift_size=2).eval()
+    init_weights(layer, gen)
+    times = {}
+    for grid in ((125, 240), (63, 120)):
+        x = torch.randn(B, *grid, 48, generator=gen)
+        with torch.no_grad():
+            want = layer.cpu()(x)
+            layer.cuda()
+            xc = x.cuda()
+            got = layer(xc).cpu()
+            times[grid] = cuda_ms(lambda: layer(xc), 5)
+        err = (got - want).abs().max().item() / want.abs().max().item()
+        print(f"  shifted BasicLayer(48, 3 heads, shift 2) at [{B}, {grid[0]}, {grid[1]}, 48] fp32, cuda against "
+              f"cpu: {err:.2e} of max (tol {SHIFT_TOL:.0e}), {times[grid]:.3f} ms on the card "
+              f"{'ok' if err <= SHIFT_TOL else 'FAIL'}")
+        if err > SHIFT_TOL:
+            raise SystemExit("the shifted level disagrees between cuda and cpu")
+    plain_layer = BasicLayer(48, 2, 3).eval().cuda()
+    plain_layer.load_state_dict(layer.state_dict())
+    xc = torch.randn(B, 125, 240, 48, generator=gen).cuda()
+    with torch.no_grad():
+        times["unshifted"] = cuda_ms(lambda: plain_layer(xc), 5)
+    print(f"  the same level unshifted (unfused) {times['unshifted']:.3f} ms")
+
+    plain = BasicLayer(96, 2, 6).eval()
+    init_weights(plain, gen)
+    chunked = BasicLayer(96, 2, 6, attn_chunk=64).eval()
+    chunked.load_state_dict(plain.state_dict())
+    plain.cuda()
+    chunked.cuda()
+    x = torch.randn(TRAIN_B, 63, 120, 96, generator=gen).cuda()
+    peaks = {}
+    with torch.no_grad():
+        for name, mod in (("unchunked", plain), ("attn_chunk=64", chunked)):
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            mod(x)
+            torch.cuda.synchronize()
+            peaks[name] = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+            times[name] = cuda_ms(lambda: mod(x), 5)
+        want, got = plain(x), chunked(x)
+    err = (got - want).abs().max().item() / want.abs().max().item()
+    print(f"  attn_chunk=64 at encoder L1's [{TRAIN_B}, 63, 120, 96] (unfused in fp32): {err:.2e} of max (tol "
+          f"{SHIFT_TOL:.0e}); {times['attn_chunk=64']:.3f} ms, {peaks['attn_chunk=64']:.0f} MiB above the input, "
+          f"unchunked {times['unchunked']:.3f} ms, {peaks['unchunked']:.0f} MiB {'ok' if err <= SHIFT_TOL else 'FAIL'}")
+    if err > SHIFT_TOL:
+        raise SystemExit("attn_chunk changes the level's output")
+
+
+def dp_reference(hw, batch):
+    """The dry run's step in this process on the full batch, on the card:
+    (loss terms, gradients, parameters after)."""
+    model = SwinWNet(**dryrun_mod.PUBLISHED, device="cuda", generator=torch.Generator().manual_seed(0))
+    images, masks = dryrun_batch(batch, hw)
+    opt = masked_adamw(model, "stage3", dryrun_mod.LR)
+    total, aux = stage3_odd_loss(model, combined_loss, smooth_l1_loss, dryrun_mod.WEIGHTS,
+                                 ensure_2ch(torch.from_numpy(images).cuda()), torch.from_numpy(masks).cuda()[:, None])
+    opt.zero_grad()
+    total.backward()
+    opt.step()
+    torch.cuda.synchronize()
+    terms = {k: float(aux[k].detach()) for k in ("loss", "seg_lr", "seg_hr", "iou_hr")}
+    named = list(model.named_parameters())
+    return terms, {k: p.grad.cpu() for k, p in named}, {k: p.detach().cpu() for k, p in named}
+
+
+def compare_dp(out, ref):
+    """The sharded step against the one-process step: loss rtol 1e-5,
+    gradients 1e-3 of each leaf's max, parameters rtol 1e-5 / atol 1e-6
+    where |g| >= 1e-7 (ten times AdamW's eps) and within 2 lr elsewhere,
+    fewer than 1e-3 of the elements outside rtol / atol."""
+    terms, grads, params = ref
+    loss_rel = abs(out["loss"] - terms["loss"]) / abs(terms["loss"])
+    gap, gap_name = grad_gap(out["grads"], grads)
+    off = n = changed = 0
+    bad = []
+    for k, want in params.items():
+        diff = (out["params"][k] - want).abs()
+        outside = diff > 1e-6 + 1e-5 * want.abs()
+        if bool((outside & (grads[k].abs() >= 10 * ADAM_EPS)).any()) or not bool((diff <= 2 * dryrun_mod.LR).all()):
+            bad.append(k)
+        off += int(outside.sum())
+        n += want.numel()
+    ok = (loss_rel <= 1e-5 and gap <= TRAIN_GRAD_TOL and not bad and off < 1e-3 * n
+          and abs(out["iou_hr"] - terms["iou_hr"]) <= 1e-6)
+    print(f"  against one process on the full batch: loss {out['loss']:.6f} vs {terms['loss']:.6f} (rel "
+          f"{loss_rel:.1e}); gradients worst {gap:.2e} of its max ({gap_name}); parameters outside rtol 1e-5 / "
+          f"atol 1e-6: {off} of {n}, all where |g| < 1e-7 and within 2 lr: {not bad}; iou_hr {out['iou_hr']:.6f} vs "
+          f"{terms['iou_hr']:.6f} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"the sharded step disagrees with the one-process step: {bad[:5]}")
+
+
+def dp_checks():
+    """dryrun_multichip over every card (NCCL), then two ranks on one card
+    over gloo at the full size against one process on the full batch."""
+    n = torch.cuda.device_count()
+    t0 = time.perf_counter()
+    out = dryrun_multichip(n)
+    wall = time.perf_counter() - t0
+    print(f"  dryrun_multichip({n}), NCCL, published width, [{n}, 2, 80, 120]: loss {out['loss']:.6f} (seg_lr "
+          f"{out['seg_lr']:.6f}, seg_hr {out['seg_hr']:.6f}, iou_hr {out['iou_hr']:.4f}); the step {out['step_ms']:.1f} "
+          f"ms, the call {wall:.1f} s with the ranks' start")
+    t0 = time.perf_counter()
+    two = dryrun_multichip(2, backend="gloo", hw=(H, W))
+    wall2 = time.perf_counter() - t0
+    print(f"  two ranks on one card over gloo, [2, 2, {H}, {W}] a sample a rank: the step {two['step_ms']:.1f} ms, "
+          f"the call {wall2:.1f} s")
+    t0 = time.perf_counter()
+    ref = dp_reference((H, W), 2)
+    ref_ms = (time.perf_counter() - t0) * 1e3
+    compare_dp(two, ref)
+    print(f"  the one-process step with the model's build {ref_ms:.1f} ms")
+
+
 def plan_text(C, nH, dtype, round_qkv=True):
     """A launch's plan, which body it takes, its registers and CTAs an SM."""
     p = sb.kernel_plan(C, nH, dtype, round_qkv)
@@ -2180,6 +2499,11 @@ def main() -> int:
     if sum(r[4] for r in wide_levels) != pc_w[0][2] or sum(r[4] for r in row_levels) != expected_launches(
             "stage1", TRAIN_B, fp32, True, "cmajor")[1]:
         raise SystemExit("the timed launches are not those of the path")
+    print("[17] the model's remaining features at the published width: remat, dropout, shifted windows, attn_chunk")
+    main_path = add(main_path, remat_steps(training_batches(1, TRAIN_B, rng)[0]), dropout_checks(rng))
+    shift_and_chunk_checks()
+    print("[18] data parallelism: dryrun_multichip over NCCL, and two ranks on one card over gloo")
+    dp_checks()
     print(f"  whole script {time.perf_counter() - t_start:.0f} s")
 
     print(json.dumps({"kernels": [

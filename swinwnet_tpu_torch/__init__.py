@@ -16,6 +16,8 @@ train      losses, schedule, stage freezing with AdamW, the three
            supervised trainers and their pipeline, the REINFORCE fine-tune
 utils      JSONL metrics logging, checkpoints on torch.save
 compat     upstream .pth loading and the JAX-params bridge, both ways
+apps       the viewer CLI, the labeler and their state models
+parallel   data parallelism on torch.distributed and the multi-card dry run
 
 Entry points run on the CUDA device unless the caller passes device="cpu";
 on the CPU a kernel's plain PyTorch version stands in for it.

@@ -14,17 +14,27 @@
   JAX package's one exception: the cross-attention returns fp32
   (`q + gamma * out` with an fp32 gamma), so in bf16 the residual trunks of
   the levels it feeds (the bottleneck and the first decoder stage) are fp32.
-* The models take only a dropout rate of 0 (every rate of the published
-  recipe is 0; `SwinWNet` raises on any other), so a forward is
-  deterministic in `train()` and in `eval()` alike, and both take the same
-  route.
+* Dropout (`drop`, `attn_drop`, `drop_path`) acts only in a forward called
+  with `deterministic=False`, as in the JAX package, whatever `train()` or
+  `eval()` says; it draws from the `generator` the caller passes. The
+  default `deterministic=True`, which every trainer, pipeline and app
+  takes, computes the same as rates of 0 (the published recipe's).
+  `drop_path` is element-wise dropout on each residual branch, the JAX
+  package's simplification, not per-sample stochastic depth.
+* A level with `shift_size > 0` runs every block on the grid: LN1, a
+  cyclic roll, windows with the SW-MSA mask (`ops.window.compute_mask`) on
+  the scores, the roll back. The shipped checkpoints never shift.
+* `remat` recomputes each unfused block's activations in the backward
+  (`torch.utils.checkpoint`); `attn_chunk` runs the unfused attention over
+  that many windows at a time, bounding the live score tensor.
 * `BasicLayer` sends a whole level to a fused block kernel
   (`ops/swin_block.py`, through its differentiable entry point) with the
   JAX package's gate: at least 128 windows; C <= 96 in bf16 or C <= 48 in
   fp32 goes to `fused_layout` ("cmajor", or "nmajor" where the grid tiles);
   wider levels up to C = 384 go to the row-major kernel when `fused_deep`.
   `fused_deep` and `fused_layout` stand for the JAX package's
-  SWINWNET_FUSED_DEEP and SWINWNET_FUSED_LAYOUT environment variables.
+  SWINWNET_FUSED_DEEP and SWINWNET_FUSED_LAYOUT environment variables. A
+  shifted level, or a forward with `deterministic=False`, never fuses.
 """
 
 from __future__ import annotations
@@ -36,11 +46,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..core.device import full_fp32
 from ..ops.resize import bilinear_resize
 from ..ops.swin_block import fused_block_autodiff, kernel_plan
 from ..ops.window import (
+    compute_mask,
     relative_position_index,
     window_pad_mask_np,
     window_partition,
@@ -67,6 +79,20 @@ def conv2d(x: torch.Tensor, conv: nn.Conv2d, dtype: torch.dtype, **kw) -> torch.
     """A cuDNN convolution in the compute dtype (fp32 at full fp32)."""
     with full_fp32(dtype):
         return F.conv2d(x.to(dtype), conv.weight.to(dtype), conv.bias.to(dtype), **kw)
+
+
+def dropout(x: torch.Tensor, rate: float, deterministic: bool,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """flax's `nn.Dropout`: unless `deterministic` or `rate` is 0, keep each
+    element where a uniform draw from `generator` (on x's device; None:
+    the default generator) is below 1 - rate and scale it by 1 / (1 - rate);
+    rate 1 gives zeros."""
+    if deterministic or rate == 0.0:
+        return x
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 # ---------------------------------------------------------------------------
@@ -100,18 +126,25 @@ class ScaleAwarePatchEmbed(nn.Module):
 
 
 # ---------------------------------------------------------------------------
-# Window attention and the Swin block (windowed layout, shift 0)
+# Window attention and the Swin block
 # ---------------------------------------------------------------------------
 
 
 class WindowAttention(nn.Module):
     """MSA within 5x5 windows with a learned relative-position bias. Input
-    [num_windows, N, C]; scores, softmax and P.V in fp32 from operands in the
-    compute dtype."""
+    [num_windows, N, C], and for shifted windows an additive mask [nW, N, N];
+    scores, softmax and P.V in fp32 from operands in the compute dtype.
+    `attn_drop` drops attention probabilities and `proj_drop` the output
+    projection. `attn_chunk` > 0 computes the attention over that many
+    windows at a time where JAX's `chunkable` holds (no mask, no active
+    attention dropout, more windows than a chunk); the last chunk is ragged,
+    since nothing here needs the static shapes JAX pads for."""
 
-    def __init__(self, dim: int, window_size: int, num_heads: int, qkv_bias: bool, dtype: torch.dtype):
+    def __init__(self, dim: int, window_size: int, num_heads: int, qkv_bias: bool, dtype: torch.dtype,
+                 attn_drop: float = 0.0, proj_drop: float = 0.0, attn_chunk: int = 0):
         super().__init__()
         self.dim, self.window_size, self.num_heads, self.dtype = dim, window_size, num_heads, dtype
+        self.attn_drop, self.proj_drop, self.attn_chunk = attn_drop, proj_drop, attn_chunk
         self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias)
         self.proj = nn.Linear(dim, dim)
         self.relative_position_bias_table = nn.Parameter(
@@ -127,7 +160,20 @@ class WindowAttention(nn.Module):
         idx = self.relative_position_index.reshape(-1)
         return self.relative_position_bias_table[idx].reshape(N, N, -1).permute(2, 0, 1).contiguous()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        Bw = x.shape[0]
+        bias = self.rel_bias()
+        K = self.attn_chunk
+        if K > 0 and mask is None and (self.attn_drop == 0.0 or deterministic) and Bw > K:
+            out = torch.cat([self._attend(c, bias, None, True, None) for c in x.split(K)])
+        else:
+            out = self._attend(x, bias, mask, deterministic, generator)
+        return dropout(linear(out, self.proj, self.dtype), self.proj_drop, deterministic, generator)
+
+    def _attend(self, x, bias, mask, deterministic, generator) -> torch.Tensor:
+        """[k, N, C] windows -> the heads' outputs [k, N, C], before the
+        output projection."""
         Bw, N, C = x.shape
         nH = self.num_heads
         hd = C // nH
@@ -135,10 +181,21 @@ class WindowAttention(nn.Module):
         qkv = linear(x, self.qkv, dt).reshape(Bw, N, 3, nH, hd).permute(2, 0, 3, 1, 4)
         q, k, v = qkv[0] * torch.tensor(hd ** -0.5, dtype=dt), qkv[1], qkv[2]
         with full_fp32(dt):
-            attn = q.float() @ k.float().transpose(-1, -2) + self.rel_bias()
+            attn = q.float() @ k.float().transpose(-1, -2) + bias
+            if mask is not None:  # [nW, N, N] onto [B, nW, nH, N, N]
+                nW = mask.shape[0]
+                attn = (attn.reshape(Bw // nW, nW, nH, N, N) + mask[None, :, None]).reshape(Bw, nH, N, N)
             attn = torch.softmax(attn, dim=-1).to(dt)
+            attn = dropout(attn, self.attn_drop, deterministic, generator)
             out = (attn.float() @ v.float()).to(dt)  # [Bw, nH, N, hd]
-        return linear(out.transpose(1, 2).reshape(Bw, N, C), self.proj, dt)
+        return out.transpose(1, 2).reshape(Bw, N, C)
+
+
+@functools.lru_cache(maxsize=16)
+def _shift_mask_tensor(H: int, W: int, ws: int, shift: int, device: str) -> torch.Tensor:
+    """`compute_mask` on `device`, kept for later calls (see `_pad_mask_tensor`)."""
+    with torch.inference_mode(False):
+        return compute_mask(H, W, ws, shift, device)
 
 
 @functools.lru_cache(maxsize=64)
@@ -158,33 +215,71 @@ def _pad_mask_tensor(H: int, W: int, ws: int, B: int, layout: str, device: str) 
 
 
 class SwinTransformerBlock(nn.Module):
-    """Pre-LN W-MSA block on window tokens [B*nW, N, C], shift 0. Pad token
-    slots are zeroed after LN1, which makes the windowed layout equal to the
-    reference's per-block pad-after-norm."""
+    """Pre-LN W-MSA / SW-MSA block in one of two layouts, as the JAX
+    package's:
+
+    * window tokens [B*nW, N, C] (shift 0 only): pad token slots are zeroed
+      after LN1 with `pad_mask` [nW, N, 1], which makes the windowed layout
+      equal to the reference's per-block pad-after-norm;
+    * a grid [B, H, W, C] (any shift): LN1, roll by -shift on the grid,
+      partition (zero-padding after the LN), attention with the SW-MSA mask,
+      reverse, roll by +shift on the padded grid, crop to (H, W).
+
+    `drop` is the MLP's dropout and the attention's output dropout,
+    `attn_drop` the attention probabilities', `drop_path` each residual
+    branch's (element-wise); all act only when `deterministic` is False."""
 
     def __init__(self, dim: int, num_heads: int, window_size: int, mlp_ratio: float,
-                 qkv_bias: bool, dtype: torch.dtype):
+                 qkv_bias: bool, dtype: torch.dtype, shift_size: int = 0, drop: float = 0.0,
+                 attn_drop: float = 0.0, drop_path: float = 0.0, attn_chunk: int = 0):
         super().__init__()
         self.dim, self.num_heads, self.dtype = dim, num_heads, dtype
+        self.window_size, self.shift_size = window_size, shift_size
+        self.drop, self.drop_path = drop, drop_path
         hidden = int(dim * mlp_ratio)
         self.norm1 = nn.LayerNorm(dim)
-        self.attn = WindowAttention(dim, window_size, num_heads, qkv_bias, dtype)
+        self.attn = WindowAttention(dim, window_size, num_heads, qkv_bias, dtype, attn_drop, drop, attn_chunk)
         self.norm2 = nn.LayerNorm(dim)
-        # indices 0 and 3 are the upstream checkpoint's fc1 / fc2
+        # indices 0 and 3 are the upstream checkpoint's fc1 / fc2; forward
+        # applies the dropout of slots 2 and 4 itself, from its generator
         self.mlp = nn.Sequential(
             nn.Linear(dim, hidden), nn.GELU(), nn.Dropout(0.0), nn.Linear(hidden, dim), nn.Dropout(0.0)
         )
 
-    def forward(self, x: torch.Tensor, pad_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, pad_mask: Optional[torch.Tensor] = None, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         dt = self.dtype
-        y = layer_norm(x, self.norm1, dt)
-        if pad_mask is not None:  # [nW, N, 1]
-            nW = pad_mask.shape[0]
-            y = (y.reshape(-1, nW, *y.shape[1:]) * pad_mask.to(dt)).reshape(y.shape)
-        x = x + self.attn(y)
+        if x.dim() == 4:
+            y = self._attend_grid(x, deterministic, generator)
+        else:
+            if self.shift_size:
+                raise ValueError("a shifted block takes a [B, H, W, C] grid, not window tokens")
+            y = layer_norm(x, self.norm1, dt)
+            if pad_mask is not None:  # [nW, N, 1]
+                nW = pad_mask.shape[0]
+                y = (y.reshape(-1, nW, *y.shape[1:]) * pad_mask.to(dt)).reshape(y.shape)
+            y = self.attn(y, None, deterministic, generator)
+        x = x + dropout(y, self.drop_path, deterministic, generator)
         y = layer_norm(x, self.norm2, dt)
-        y = linear(F.gelu(linear(y, self.mlp[0], dt)), self.mlp[3], dt)
-        return x + y
+        y = dropout(F.gelu(linear(y, self.mlp[0], dt)), self.drop, deterministic, generator)
+        y = dropout(linear(y, self.mlp[3], dt), self.drop, deterministic, generator)
+        return x + dropout(y, self.drop_path, deterministic, generator)
+
+    def _attend_grid(self, x: torch.Tensor, deterministic: bool,
+                     generator: Optional[torch.Generator]) -> torch.Tensor:
+        """The attention branch on a [B, H, W, C] grid."""
+        B, H, W, C = x.shape
+        ws, s = self.window_size, self.shift_size
+        y = layer_norm(x, self.norm1, self.dtype)
+        mask = None
+        if s > 0:
+            y = torch.roll(y, (-s, -s), (1, 2))
+            mask = _shift_mask_tensor(H, W, ws, s, str(x.device))
+        yw, (Hp, Wp) = window_partition(y, ws)
+        y = window_reverse(self.attn(yw, mask, deterministic, generator), ws, Hp, Wp)
+        if s > 0:
+            y = torch.roll(y, (s, s), (1, 2))
+        return y[:, :H, :W]
 
     def forward_fused(self, x: torch.Tensor, layout: str,
                       pad_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -212,11 +307,33 @@ class SwinTransformerBlock(nn.Module):
         )
 
 
+def _block_seed(generator: Optional[torch.Generator]) -> int:
+    """A seed for one block's dropout, drawn from `generator` (None: the
+    default CPU generator)."""
+    dev = "cpu" if generator is None else generator.device
+    return int(torch.randint(0, 2 ** 62, (), generator=generator, device=dev))
+
+
+def _run_block(blk: SwinTransformerBlock, x: torch.Tensor, pad_mask: Optional[torch.Tensor],
+               deterministic: bool, seed: Optional[int]) -> torch.Tensor:
+    """One block, its dropout drawn from a generator on x's device seeded
+    here with `seed`. `checkpoint` restores only the default generators, so
+    a block under remat builds its own from the seed: the recompute in the
+    backward then draws the forward's masks."""
+    gen = None if seed is None else torch.Generator(device=x.device).manual_seed(seed)
+    return blk(x, pad_mask, deterministic, gen)
+
+
 class BasicLayer(nn.Module):
-    """`depth` Swin blocks, shift 0. The grid is partitioned into windows once,
-    every block runs on window tokens, and the windows are reversed once.
-    `fused_deep` and `fused_layout` are the JAX package's
-    SWINWNET_FUSED_DEEP=1 and SWINWNET_FUSED_LAYOUT."""
+    """`depth` Swin blocks, each shifted by `shift_size` (the same for every
+    block, as in the JAX package). At shift 0 the grid is partitioned into
+    windows once, every block runs on window tokens, and the windows are
+    reversed once; a shifted level runs every block on the grid and is
+    never fused. `fused_deep` and `fused_layout` are the JAX package's
+    SWINWNET_FUSED_DEEP=1 and SWINWNET_FUSED_LAYOUT. `drop`, `attn_drop`
+    and `drop_path` are the blocks' dropout rates (see
+    SwinTransformerBlock); `remat` checkpoints each unfused block, and
+    `attn_chunk` chunks the unfused attention (see WindowAttention)."""
 
     # the JAX gate's least window count for a fused level (it lifts the rule
     # under its interpret switch; the CPU tests lower this attribute instead)
@@ -225,21 +342,27 @@ class BasicLayer(nn.Module):
     def __init__(self, dim: int, depth: int, num_heads: int, window_size: int = 5,
                  mlp_ratio: float = 4.0, qkv_bias: bool = True, fused_blocks: bool = False,
                  dtype: torch.dtype = torch.float32, fused_deep: bool = False,
-                 fused_layout: str = "cmajor"):
+                 fused_layout: str = "cmajor", shift_size: int = 0, drop: float = 0.0,
+                 attn_drop: float = 0.0, drop_path: float = 0.0, remat: bool = False,
+                 attn_chunk: int = 0):
         super().__init__()
         if fused_layout not in ("cmajor", "nmajor"):
             raise ValueError(f"fused_layout must be 'cmajor' or 'nmajor', got {fused_layout!r}")
         self.dim, self.window_size, self.fused_blocks, self.dtype = dim, window_size, fused_blocks, dtype
         self.fused_deep, self.fused_layout = fused_deep, fused_layout
+        self.shift_size, self.remat = shift_size, remat
+        self.has_dropout = max(drop, attn_drop, drop_path) > 0.0
         self.blocks = nn.ModuleList(
-            SwinTransformerBlock(dim, num_heads, window_size, mlp_ratio, qkv_bias, dtype)
+            SwinTransformerBlock(dim, num_heads, window_size, mlp_ratio, qkv_bias, dtype, shift_size,
+                                 drop, attn_drop, drop_path, attn_chunk)
             for _ in range(depth)
         )
 
-    def fused_route(self, B: int, H: int, W: int) -> str:
+    def fused_route(self, B: int, H: int, W: int, deterministic: bool = True) -> str:
         """The JAX package's fused-kernel gate (its TPU-backend test aside):
         the layout of the kernel this level goes to, or "" for the unfused
-        blocks. At least 128 windows; C <= 96 in bf16 (48 in fp32) goes to
+        blocks. Only a deterministic forward of a level at shift 0 fuses.
+        At least 128 windows; C <= 96 in bf16 (48 in fp32) goes to
         `fused_layout`, where "nmajor" has no pad mask and falls back on a
         grid that does not tile; wider levels up to C = 384 go to
         "rowmajor" when `fused_deep`. A level the kernel has no plan for
@@ -248,7 +371,7 @@ class BasicLayer(nn.Module):
         ws = self.window_size
         cap = 96 if self.dtype == torch.bfloat16 else 48
         n_windows = B * (-(-H // ws)) * (-(-W // ws))
-        if not (self.fused_blocks and n_windows >= self.min_windows):
+        if not (self.fused_blocks and deterministic and self.shift_size == 0 and n_windows >= self.min_windows):
             return ""
         if self.dim <= cap:
             padded = H % ws != 0 or W % ws != 0
@@ -269,11 +392,14 @@ class BasicLayer(nn.Module):
     def uses_kernel(self, B: int, H: int, W: int) -> bool:
         return self.fused_route(B, H, W) != ""
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         B, H, W, C = x.shape
         ws = self.window_size
+        if self.shift_size > 0:  # each block partitions, rolls and masks the grid itself
+            return self._run_blocks(x, None, deterministic, generator)
         dev = str(x.device)
-        route = self.fused_route(B, H, W)
+        route = self.fused_route(B, H, W, deterministic)
         if route == "nmajor":
             xw, (Hp, Wp) = window_partition_nmajor(x, ws)  # [N, Wt, C]
             for blk in self.blocks:
@@ -296,10 +422,23 @@ class BasicLayer(nn.Module):
             xw = x2.reshape(xw.shape)
         else:
             mask = _pad_mask_tensor(H, W, ws, B, "windows", dev)
-            for blk in self.blocks:
-                xw = blk(xw, mask)
+            xw = self._run_blocks(xw, mask, deterministic, generator)
         x = window_reverse(xw, ws, Hp, Wp)
         return x[:, :H, :W, :] if (Hp, Wp) != (H, W) else x
+
+    def _run_blocks(self, x: torch.Tensor, pad_mask: Optional[torch.Tensor], deterministic: bool,
+                    generator: Optional[torch.Generator]) -> torch.Tensor:
+        """The unfused blocks, each checkpointed under `remat` when autograd
+        records; a block that drops gets its own seed from `generator`."""
+        draws = not deterministic and self.has_dropout
+        remat = self.remat and torch.is_grad_enabled()
+        for blk in self.blocks:
+            seed = _block_seed(generator) if draws else None
+            if remat:
+                x = checkpoint(_run_block, blk, x, pad_mask, deterministic, seed, use_reentrant=False)
+            else:
+                x = _run_block(blk, x, pad_mask, deterministic, seed)
+        return x
 
 
 # ---------------------------------------------------------------------------
@@ -349,25 +488,30 @@ class PatchExpanding(nn.Module):
 
 class SwinEncoder(nn.Module):
     """(BasicLayer -> skip -> PatchMerging) per stage, then a last BasicLayer.
-    Returns the skip grids; the last is the deepest feature map."""
+    Returns the skip grids; the last is the deepest feature map. `drop`,
+    `attn_drop`, `drop_path`, `remat` and `attn_chunk` go to every level."""
 
     def __init__(self, embed_dim: int, depths: Sequence[int], num_heads: Sequence[int],
                  window_size: int, mlp_ratio: float, qkv_bias: bool, fused_blocks: bool,
-                 dtype: torch.dtype, fused_deep: bool = False, fused_layout: str = "cmajor"):
+                 dtype: torch.dtype, fused_deep: bool = False, fused_layout: str = "cmajor",
+                 drop: float = 0.0, attn_drop: float = 0.0, drop_path: float = 0.0,
+                 remat: bool = False, attn_chunk: int = 0):
         super().__init__()
         n = len(depths)
         dims = [embed_dim * 2 ** i for i in range(n)]
         self.layers = nn.ModuleList(
             BasicLayer(dims[i], depths[i], num_heads[i], window_size, mlp_ratio, qkv_bias,
-                       fused_blocks, dtype, fused_deep, fused_layout)
+                       fused_blocks, dtype, fused_deep, fused_layout, drop=drop, attn_drop=attn_drop,
+                       drop_path=drop_path, remat=remat, attn_chunk=attn_chunk)
             for i in range(n)
         )
         self.downs = nn.ModuleList(PatchMerging(dims[i], dtype) for i in range(n - 1))
 
-    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
+    def forward(self, x: torch.Tensor, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> List[torch.Tensor]:
         skips = []
         for i, layer in enumerate(self.layers):
-            x = layer(x)
+            x = layer(x, deterministic, generator)
             skips.append(x)
             if i < len(self.downs):
                 x = self.downs[i](x)
@@ -376,16 +520,21 @@ class SwinEncoder(nn.Module):
 
 class Bottleneck(nn.Module):
     """Depth-2 BasicLayer at 8C (default MLP ratio and qkv bias, as the
-    reference)."""
+    reference). The models build it with `remat` and `attn_chunk` but no
+    dropout rates, as the JAX models do."""
 
     def __init__(self, dim: int, num_heads: int, window_size: int, fused_blocks: bool,
-                 dtype: torch.dtype, fused_deep: bool = False, fused_layout: str = "cmajor"):
+                 dtype: torch.dtype, fused_deep: bool = False, fused_layout: str = "cmajor",
+                 drop: float = 0.0, attn_drop: float = 0.0, drop_path: float = 0.0,
+                 remat: bool = False, attn_chunk: int = 0):
         super().__init__()
         self.layer = BasicLayer(dim, 2, num_heads, window_size, fused_blocks=fused_blocks, dtype=dtype,
-                                fused_deep=fused_deep, fused_layout=fused_layout)
+                                fused_deep=fused_deep, fused_layout=fused_layout, drop=drop,
+                                attn_drop=attn_drop, drop_path=drop_path, remat=remat, attn_chunk=attn_chunk)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.layer(x)
+    def forward(self, x: torch.Tensor, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return self.layer(x, deterministic, generator)
 
 
 class SwinDecoder(nn.Module):
@@ -395,7 +544,9 @@ class SwinDecoder(nn.Module):
 
     def __init__(self, embed_dim: int, depths: Sequence[int], num_heads: Sequence[int],
                  window_size: int, mlp_ratio: float, qkv_bias: bool, fused_blocks: bool,
-                 dtype: torch.dtype, fused_deep: bool = False, fused_layout: str = "cmajor"):
+                 dtype: torch.dtype, fused_deep: bool = False, fused_layout: str = "cmajor",
+                 drop: float = 0.0, attn_drop: float = 0.0, drop_path: float = 0.0,
+                 remat: bool = False, attn_chunk: int = 0):
         super().__init__()
         self.dtype = dtype
         dec_depths, dec_heads = tuple(depths[-2::-1]), tuple(num_heads[-2::-1])
@@ -403,12 +554,14 @@ class SwinDecoder(nn.Module):
         self.ups = nn.ModuleList(PatchExpanding(d, dtype) for d in dims)
         self.swin_blocks = nn.ModuleList(
             BasicLayer(d, dec_depths[i], dec_heads[i], window_size, mlp_ratio, qkv_bias,
-                       fused_blocks, dtype, fused_deep, fused_layout)
+                       fused_blocks, dtype, fused_deep, fused_layout, drop=drop, attn_drop=attn_drop,
+                       drop_path=drop_path, remat=remat, attn_chunk=attn_chunk)
             for i, d in enumerate(dims)
         )
         self.linears = nn.ModuleList(nn.Linear(d, d // 2) for d in dims)
 
-    def forward(self, x: torch.Tensor, skips: Sequence[torch.Tensor]) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, skips: Sequence[torch.Tensor], deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         skips = list(skips)[-2::-1]
         for i, skip in enumerate(skips):
             x = self.ups[i](x)
@@ -417,7 +570,7 @@ class SwinDecoder(nn.Module):
             # a skip that went through the cross-attention is fp32: promote
             dt = torch.promote_types(x.dtype, skip.dtype)
             x = torch.cat([x.to(dt), skip.to(dt)], dim=-1)
-            x = self.swin_blocks[i](x)
+            x = self.swin_blocks[i](x, deterministic, generator)
             x = linear(x, self.linears[i], self.dtype)
         return x
 
@@ -456,14 +609,17 @@ class UpscalingHead(nn.Module):
 
     def __init__(self, error_matrix: bool, embed_dim: int, window_size: int, num_heads: int,
                  depth: int, mlp_ratio: float, qkv_bias: bool, fused_blocks: bool,
-                 dtype: torch.dtype, fused_deep: bool = False, fused_layout: str = "cmajor"):
+                 dtype: torch.dtype, fused_deep: bool = False, fused_layout: str = "cmajor",
+                 drop: float = 0.0, attn_drop: float = 0.0, drop_path: float = 0.0,
+                 remat: bool = False, attn_chunk: int = 0):
         super().__init__()
         self.dtype = dtype
         dims = [embed_dim, embed_dim // 2]
         self.ups = nn.ModuleList(PatchExpanding(d, dtype) for d in dims)
         self.swin_blocks = nn.ModuleList(
             BasicLayer(d // 2, depth, num_heads, window_size, mlp_ratio, qkv_bias, fused_blocks, dtype,
-                       fused_deep, fused_layout)
+                       fused_deep, fused_layout, drop=drop, attn_drop=attn_drop, drop_path=drop_path,
+                       remat=remat, attn_chunk=attn_chunk)
             for d in dims
         )
         c = embed_dim // 4
@@ -471,9 +627,10 @@ class UpscalingHead(nn.Module):
             nn.Conv2d(c, c, 3, padding=1), nn.GELU(), nn.Conv2d(c, 2 if error_matrix else 1, 1)
         )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         for up, layer in zip(self.ups, self.swin_blocks):
-            x = layer(up(x))
+            x = layer(up(x), deterministic, generator)
         dt = self.dtype
         x = x.permute(0, 3, 1, 2)
         x = conv2d(x, self.reconstruction[0], dt, padding=1)

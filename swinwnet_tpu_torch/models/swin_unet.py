@@ -18,15 +18,16 @@ from torch import nn
 
 from ..core.device import resolve_device, resolve_dtype
 from .layers import Bottleneck, ScaleAwarePatchEmbed, SegmentationHead, SwinDecoder, SwinEncoder, UpscalingHead
-from .swin_wnet import check_dropout, init_weights
+from .swin_wnet import init_weights
 
 
 class _SwinTower(nn.Module):
     """The trunk both baselines share: embedding, encoder, bottleneck and
     decoder, built on `device` (default: the CUDA device) with torch-default
     weights drawn from `generator` (None: a generator seeded with 0).
-    `fused_blocks`, `fused_deep` and `fused_layout` route the levels as in
-    `SwinWNet`; any dropout rate but 0 raises."""
+    `fused_blocks`, `fused_deep` and `fused_layout` route the levels, and
+    the dropout rates, `remat` and `attn_chunk` act, as in `SwinWNet` (the
+    bottleneck without rates)."""
 
     def __init__(
         self,
@@ -48,24 +49,26 @@ class _SwinTower(nn.Module):
         attn_drop: float,
         drop_path: float,
         sr_head: bool,
+        remat: bool = False,
+        attn_chunk: int = 0,
     ):
         super().__init__()
-        check_dropout(drop, attn_drop, drop_path)
         device = resolve_device(device)
         dt = resolve_dtype(dtype)
         self.patch_size, self.dtype = patch_size, dt
         depths, num_heads = tuple(depths), tuple(num_heads)
-        fused = dict(fused_deep=fused_deep, fused_layout=fused_layout)
+        level = dict(fused_deep=fused_deep, fused_layout=fused_layout, remat=remat, attn_chunk=attn_chunk)
+        rates = dict(drop=drop, attn_drop=attn_drop, drop_path=drop_path)
         tower = dict(embed_dim=embed_dim, depths=depths, num_heads=num_heads, window_size=window_size,
-                     mlp_ratio=mlp_ratio, qkv_bias=qkv_bias, fused_blocks=fused_blocks, dtype=dt, **fused)
+                     mlp_ratio=mlp_ratio, qkv_bias=qkv_bias, fused_blocks=fused_blocks, dtype=dt, **level, **rates)
         with torch.device("meta"):  # shapes only; weights are drawn below
             self.patch_embed = ScaleAwarePatchEmbed(patch_size, in_chans, embed_dim, dt)
             self.encoder = SwinEncoder(**tower)
-            self.bottleneck = Bottleneck(embed_dim * 8, num_heads[-1], window_size, fused_blocks, dt, **fused)
+            self.bottleneck = Bottleneck(embed_dim * 8, num_heads[-1], window_size, fused_blocks, dt, **level)
             self.decoder = SwinDecoder(**tower)
             if sr_head:
                 self.head = UpscalingHead(False, embed_dim, window_size, 3, 2, mlp_ratio, qkv_bias,
-                                          fused_blocks, dt, **fused)
+                                          fused_blocks, dt, **level, **rates)
             else:
                 self.head = SegmentationHead(embed_dim, patch_size, dt)
         self.to_empty(device="cpu")
@@ -73,12 +76,12 @@ class _SwinTower(nn.Module):
         self.to(device)
         self.eval()
 
-    def trunk(self, x: torch.Tensor):
+    def trunk(self, x: torch.Tensor, deterministic: bool = True, generator: Optional[torch.Generator] = None):
         """Embedding to decoder output: ([B, h, w, C] grid, padded (H, W))."""
         tokens, padded_res = self.patch_embed(x, scale_factor=1)
-        skips = self.encoder(tokens)
-        x_b = self.bottleneck(skips[-1])
-        return self.decoder(x_b, skips), padded_res
+        skips = self.encoder(tokens, deterministic, generator)
+        x_b = self.bottleneck(skips[-1], deterministic, generator)
+        return self.decoder(x_b, skips, deterministic, generator), padded_res
 
 
 class SwinUNet(_SwinTower):
@@ -105,13 +108,16 @@ class SwinUNet(_SwinTower):
         drop: float = 0.0,
         attn_drop: float = 0.0,
         drop_path: float = 0.0,
+        remat: bool = False,
+        attn_chunk: int = 0,
     ):
         super().__init__(patch_size, in_chans, embed_dim, depths, num_heads, window_size, mlp_ratio, qkv_bias,
                          fused_blocks, dtype, device, generator, fused_deep, fused_layout, drop, attn_drop,
-                         drop_path, sr_head=False)
+                         drop_path, sr_head=False, remat=remat, attn_chunk=attn_chunk)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x_dec, padded_res = self.trunk(x)
+    def forward(self, x: torch.Tensor, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        x_dec, padded_res = self.trunk(x, deterministic, generator)
         return self.head(x_dec, padded_res)
 
 
@@ -140,12 +146,15 @@ class SwinUNetSR(_SwinTower):
         drop: float = 0.0,
         attn_drop: float = 0.0,
         drop_path: float = 0.0,
+        remat: bool = False,
+        attn_chunk: int = 0,
     ):
         super().__init__(patch_size, in_chans, embed_dim, depths, num_heads, window_size, mlp_ratio, qkv_bias,
                          fused_blocks, dtype, device, generator, fused_deep, fused_layout, drop, attn_drop,
-                         drop_path, sr_head=True)
+                         drop_path, sr_head=True, remat=remat, attn_chunk=attn_chunk)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         result_H, result_W = x.shape[2] * 2, x.shape[3] * 2
-        x_dec, _ = self.trunk(x)
-        return self.head(x_dec)[:, :, :result_H, :result_W]
+        x_dec, _ = self.trunk(x, deterministic, generator)
+        return self.head(x_dec, deterministic, generator)[:, :, :result_H, :result_W]

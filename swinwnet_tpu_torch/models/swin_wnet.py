@@ -47,9 +47,13 @@ class SwinWNet(nn.Module):
     the levels under the cap (its SWINWNET_FUSED_LAYOUT). Both are carried
     down to every BasicLayer.
 
-    `drop`, `attn_drop` and `drop_path` are the JAX model's dropout rates.
-    Every recipe in the repo sets them to 0, and only 0 is taken: dropout
-    itself is not ported yet (ROADMAP A.5), so any other rate raises."""
+    `drop`, `attn_drop` and `drop_path` are the JAX model's dropout rates
+    (every recipe in the repo sets them to 0). They act only in a call with
+    `deterministic=False`, which draws from the `generator` passed to that
+    call and routes every level to the unfused blocks; the bottlenecks take
+    no rates, as in the JAX model. `remat` recomputes each unfused block in
+    the backward; `attn_chunk` > 0 bounds the unfused attention to that many
+    windows at a time."""
 
     def __init__(
         self,
@@ -71,9 +75,10 @@ class SwinWNet(nn.Module):
         drop: float = 0.0,
         attn_drop: float = 0.0,
         drop_path: float = 0.0,
+        remat: bool = False,
+        attn_chunk: int = 0,
     ):
         super().__init__()
-        check_dropout(drop, attn_drop, drop_path)
         device = resolve_device(device)
         dt = resolve_dtype(dtype)
         self.patch_size, self.error_matrix, self.dtype = patch_size, error_matrix, dt
@@ -81,77 +86,73 @@ class SwinWNet(nn.Module):
         tower = dict(
             embed_dim=embed_dim, depths=depths, num_heads=num_heads, window_size=window_size,
             mlp_ratio=mlp_ratio, qkv_bias=qkv_bias, fused_blocks=fused_blocks, dtype=dt,
-            fused_deep=fused_deep, fused_layout=fused_layout,
+            fused_deep=fused_deep, fused_layout=fused_layout, drop=drop, attn_drop=attn_drop,
+            drop_path=drop_path, remat=remat, attn_chunk=attn_chunk,
         )
-        fused = dict(fused_deep=fused_deep, fused_layout=fused_layout)
+        level = dict(fused_deep=fused_deep, fused_layout=fused_layout, remat=remat, attn_chunk=attn_chunk)
+        rates = dict(drop=drop, attn_drop=attn_drop, drop_path=drop_path)
         in_ch = in_chans + 1 if error_matrix else in_chans
         ca_dims = (embed_dim * 4, embed_dim * 8)
         with torch.device("meta"):  # shapes only; weights are drawn below
             self.patch_embed = ScaleAwarePatchEmbed(patch_size, in_ch, embed_dim, dt)
             self.segmentator_encoder = SwinEncoder(**tower)
-            self.segmentator_bottleneck = Bottleneck(embed_dim * 8, num_heads[-1], window_size, fused_blocks, dt, **fused)
+            self.segmentator_bottleneck = Bottleneck(embed_dim * 8, num_heads[-1], window_size, fused_blocks, dt, **level)
             self.segmentator_decoder = SwinDecoder(**tower)
             self.segmentator_head = SegmentationHead(embed_dim, patch_size, dt)
             self.ca_seg_to_sr = MultiScaleCrossAttention(ca_dims, (3, 3), dt)
             self.ca_sr_to_seg = MultiScaleCrossAttention(ca_dims, (3, 3), dt)
             self.upscaler_encoder = SwinEncoder(**tower)
-            self.upscaler_bottleneck = Bottleneck(embed_dim * 8, num_heads[-1], window_size, fused_blocks, dt, **fused)
+            self.upscaler_bottleneck = Bottleneck(embed_dim * 8, num_heads[-1], window_size, fused_blocks, dt, **level)
             self.upscaler_decoder = SwinDecoder(**tower)
             self.upscaler_head = UpscalingHead(
-                error_matrix, embed_dim, window_size, 3, 2, mlp_ratio, qkv_bias, fused_blocks, dt, **fused
+                error_matrix, embed_dim, window_size, 3, 2, mlp_ratio, qkv_bias, fused_blocks, dt, **level, **rates
             )
         self.to_empty(device="cpu")
         init_weights(self, generator)
         self.to(device)
         self.eval()
 
-    def forward(self, x: torch.Tensor):
+    def forward(self, x: torch.Tensor, deterministic: bool = True, generator: Optional[torch.Generator] = None):
         """Full W pass (segment_1 -> upscale -> segment_2)."""
-        seg, skips_seg = self.segment_1(x)
-        up, skips_up = self.upscale(x, skips_seg)
-        seg_hr, _ = self.segment_2(up, skips_up)
+        seg, skips_seg = self.segment_1(x, deterministic, generator)
+        up, skips_up = self.upscale(x, skips_seg, deterministic, generator)
+        seg_hr, _ = self.segment_2(up, skips_up, deterministic, generator)
         return seg, up, seg_hr
 
-    def segment_1(self, x: torch.Tensor):
+    def segment_1(self, x: torch.Tensor, deterministic: bool = True, generator: Optional[torch.Generator] = None):
         """LR segmentation."""
         tokens, padded_res = self.patch_embed(x, scale_factor=1)
-        skips = self.segmentator_encoder(tokens)
-        x_b = self.segmentator_bottleneck(skips[-1])
-        x_dec = self.segmentator_decoder(x_b, skips)
+        skips = self.segmentator_encoder(tokens, deterministic, generator)
+        x_b = self.segmentator_bottleneck(skips[-1], deterministic, generator)
+        x_dec = self.segmentator_decoder(x_b, skips, deterministic, generator)
         return self.segmentator_head(x_dec, padded_res), skips
 
-    def upscale(self, x: torch.Tensor, skips_segmentator):
+    def upscale(self, x: torch.Tensor, skips_segmentator, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None):
         """2x super-resolution conditioned on segmentator skips."""
         result_H, result_W = x.shape[2] * 2, x.shape[3] * 2
         tokens, _ = self.patch_embed(x, scale_factor=1)
-        skips_up = list(self.upscaler_encoder(tokens))
+        skips_up = list(self.upscaler_encoder(tokens, deterministic, generator))
         skips_up[-2], skips_up[-1] = self.ca_seg_to_sr(
             [skips_up[-2], skips_up[-1]], [skips_segmentator[-2], skips_segmentator[-1]]
         )
-        x_b = self.upscaler_bottleneck(skips_up[-1])
-        x_dec = self.upscaler_decoder(x_b, skips_up)
-        upscaled = self.upscaler_head(x_dec)
+        x_b = self.upscaler_bottleneck(skips_up[-1], deterministic, generator)
+        x_dec = self.upscaler_decoder(x_b, skips_up, deterministic, generator)
+        upscaled = self.upscaler_head(x_dec, deterministic, generator)
         return upscaled[:, :, :result_H, :result_W], skips_up
 
-    def segment_2(self, x: torch.Tensor, skips_upscaler):
+    def segment_2(self, x: torch.Tensor, skips_upscaler, deterministic: bool = True,
+                  generator: Optional[torch.Generator] = None):
         """HR segmentation of the SR output through the shared embedding at
         scale_factor=2."""
         tokens, padded_res = self.patch_embed(x, scale_factor=2)
-        skips = list(self.segmentator_encoder(tokens))
+        skips = list(self.segmentator_encoder(tokens, deterministic, generator))
         skips[-2], skips[-1] = self.ca_sr_to_seg(
             [skips[-2], skips[-1]], [skips_upscaler[-2], skips_upscaler[-1]]
         )
-        x_b = self.segmentator_bottleneck(skips[-1])
-        x_dec = self.segmentator_decoder(x_b, skips)
+        x_b = self.segmentator_bottleneck(skips[-1], deterministic, generator)
+        x_dec = self.segmentator_decoder(x_b, skips, deterministic, generator)
         return self.segmentator_head(x_dec, padded_res, scale_factor=2), skips
-
-
-def check_dropout(drop: float, attn_drop: float, drop_path: float) -> None:
-    """The models take the JAX models' dropout rates, and only 0: dropout
-    itself is not ported yet (ROADMAP A.5)."""
-    for name, rate in (("drop", drop), ("attn_drop", attn_drop), ("drop_path", drop_path)):
-        if rate != 0.0:
-            raise ValueError(f"{name}={rate}: the port takes no dropout yet (ROADMAP A.5); only 0.0")
 
 
 @torch.no_grad()

@@ -1,16 +1,19 @@
-"""Window partition / reverse, the relative-position index and the pad mask
-(port of `swinwnet_tpu/ops/window.py` and of `relative_position_index` /
-`_window_pad_mask_np` in `swinwnet_tpu/models/layers.py`).
+"""Window partition / reverse, the relative-position index, the pad mask and
+the shifted-window attention mask (port of `swinwnet_tpu/ops/window.py` and
+of `relative_position_index` / `_window_pad_mask_np` in
+`swinwnet_tpu/models/layers.py`).
 
 Grids are [B, H, W, C] as in the JAX package. A grid that does not tile by
-the window is zero-padded at the bottom and right. Shift is always 0 in the
-shipped checkpoints, so the shifted-window mask is not needed.
+the window is zero-padded at the bottom and right. The shipped checkpoints
+never shift; a shifted level (`BasicLayer(shift_size=s)`) adds
+`compute_mask` to its attention scores: the standard Swin SW-MSA mask
+([nW, N, N], pairwise region-id difference), as the JAX package computes it.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -118,3 +121,29 @@ def window_pad_mask_np(H: int, W: int, window_size: int) -> Optional[np.ndarray]
     m = m.reshape(-1, ws * ws, 1)
     m.setflags(write=False)
     return m
+
+
+@functools.lru_cache(maxsize=64)
+def _compute_mask_np(H: int, W: int, window_size: int, shift_size: int) -> np.ndarray:
+    """[nW, N, N] {0, -100} over the padded grid (Hp, Wp): -100 where two
+    token slots of a window lie in different regions of the rolled grid."""
+    ws = window_size
+    Hp, Wp = H + (-H) % ws, W + (-W) % ws
+    img_mask = np.zeros((Hp, Wp), dtype=np.float32)
+    slices = (slice(0, -ws), slice(-ws, -shift_size), slice(-shift_size, None))
+    cnt = 0
+    for h in slices:
+        for w in slices:
+            img_mask[h, w] = cnt
+            cnt += 1
+    mask_windows = img_mask.reshape(Hp // ws, ws, Wp // ws, ws).transpose(0, 2, 1, 3).reshape(-1, ws * ws)
+    diff = mask_windows[:, None, :] - mask_windows[:, :, None]
+    out = np.where(diff != 0, -100.0, 0.0).astype(np.float32)
+    out.setflags(write=False)
+    return out
+
+
+def compute_mask(H: int, W: int, window_size: int, shift_size: int,
+                 device: Union[str, torch.device] = "cpu") -> torch.Tensor:
+    """Additive SW-MSA attention mask [nW, ws*ws, ws*ws], fp32, on `device`."""
+    return torch.from_numpy(_compute_mask_np(H, W, window_size, shift_size).copy()).to(device)

@@ -13,8 +13,9 @@ functions and thin epoch loops.
 
 A step is forward, backward and one AdamW update on the model's own
 parameters, in place. The forward goes through the fused block kernels when
-the model was built with `fused_blocks=True`, in `train()` and `eval()` alike
-(the models take only a dropout rate of 0).
+the model was built with `fused_blocks=True`, in `train()` and `eval()` alike:
+the trainers call the model with its default `deterministic=True`, as the
+JAX trainers do, so a model's dropout rates never act in them.
 
 Mixed precision: `compute_dtype=torch.bfloat16` runs the model's products
 in bf16 while parameters, optimizer state and losses stay fp32 and the
@@ -112,16 +113,20 @@ def stage3_even_loss(model, seg_loss_fn, sr_loss_fn, weights, images, masks):
     return total, {"loss": total, "seg_lr": loss_seg, "rec": rec, "seg_hr": zero}
 
 
-def stage3_odd_loss(model, seg_loss_fn, sr_loss_fn, weights, images, masks):
+def stage3_odd_loss(model, seg_loss_fn, sr_loss_fn, weights, images, masks, deterministic: bool = True,
+                    generator: Optional[torch.Generator] = None):
+    """The odd step's loss and aux terms. `hr_inter` and `hr_union` are the
+    sums behind `iou_hr`: over a sharded batch their sums over the shards,
+    not the shards' ratios, give the batch's IoU."""
     seg_weight_lr, seg_weight_hr, _ = weights
-    seg, skips_seg = model.segment_1(images)
+    seg, skips_seg = model.segment_1(images, deterministic, generator)
     seg = seg.float()
     loss_low = seg_loss_fn(seg, masks)
     images_masked = torch.sigmoid(seg) * images
     norm_hr, params_hr = normalize_piecewise(images_masked)
-    sr_out, skips_sr = model.upscale(norm_hr, skips_seg)
+    sr_out, skips_sr = model.upscale(norm_hr, skips_seg, deterministic, generator)
     denorm_pred = denormalize_piecewise(sr_out.float(), params_hr)
-    seg_high, _ = model.segment_2(denorm_pred, skips_sr)
+    seg_high, _ = model.segment_2(denorm_pred, skips_sr, deterministic, generator)
     seg_high = seg_high.float()
     masks_up = nearest_exact_resize(masks.float(), masks.shape[-2] * 2, masks.shape[-1] * 2)
     loss_high = seg_loss_fn(seg_high, masks_up)
@@ -132,7 +137,8 @@ def stage3_odd_loss(model, seg_loss_fn, sr_loss_fn, weights, images, masks):
         union = torch.sum(torch.maximum(pred_hr, masks_up))
         iou_hr = inter / torch.clamp(union, min=1.0)
     zero = torch.zeros((), device=total.device)
-    return total, {"loss": total, "seg_lr": loss_low, "seg_hr": loss_high, "rec": zero, "iou_hr": iou_hr}
+    return total, {"loss": total, "seg_lr": loss_low, "seg_hr": loss_high, "rec": zero, "iou_hr": iou_hr,
+                   "hr_inter": inter, "hr_union": union}
 
 
 class _BaseTrainer:

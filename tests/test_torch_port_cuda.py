@@ -372,3 +372,41 @@ def test_device_metrics_on_the_card_match_the_cpu(cuda, seed):
         assert got[key].device.type == "cuda"
         assert torch.allclose(got[key].cpu(), value, rtol=1e-4, atol=1e-5), key
     assert (want["Integral Intensity"] > 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid", [(125, 240), (63, 120)])
+def test_shifted_level_on_the_card_matches_the_cpu(cuda, grid):
+    """BasicLayer(48, 3 heads, shift 2) at encoder L0's grid and at one that
+    does not tile, fp32: 1e-5 of max (cuBLAS and the CPU summing apart)."""
+    from swinwnet_tpu_torch.models import BasicLayer, init_weights
+
+    layer = BasicLayer(48, 2, 3, shift_size=2).eval()
+    init_weights(layer, torch.Generator().manual_seed(0))
+    x = torch.randn(2, *grid, 48, generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        want = layer(x)
+        got = layer.to(cuda)(x.to(cuda))
+    assert (got.cpu() - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dropout_draws_on_the_card(cuda, dtype):
+    from swinwnet_tpu_torch.models.layers import dropout
+
+    x = torch.ones(8, 2, 250, 480, device=cuda, dtype=dtype)
+    draw = lambda seed: dropout(x, 0.1, False, torch.Generator(device=cuda).manual_seed(seed))
+    a, b, c = draw(0), draw(0), draw(1)
+    assert torch.equal(a, b) and not torch.equal(a, c)
+    kept = a != 0
+    assert abs(kept.float().mean().item() - 0.9) < 0.005
+    assert torch.equal(a[kept], torch.full_like(a[kept], 1.0) / 0.9)
+
+
+@pytest.mark.cuda
+def test_one_rank_nccl_dryrun(cuda):
+    from swinwnet_tpu_torch.parallel import dryrun_multichip
+
+    out = dryrun_multichip(1, hw=(40, 60), model_kw=dict(embed_dim=12, depths=(1, 1, 1, 1), num_heads=(3, 3, 3, 3)))
+    assert np.isfinite(out["loss"]) and len(out["grads"]) > 100

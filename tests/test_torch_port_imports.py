@@ -3,8 +3,10 @@ it builds a model, serves a request (also through the split route), trains
 the three stages, serves an RL request, takes an RL step, runs the
 baselines' pipelines and the eval harness on synthesized data, runs the
 viewer CLI, the labeler, the C++ batcher, the calibration and the McStas
-spec, with jax, flax, optax, orbax and the JAX package refused by an import
-hook; and its entry points never quietly fall back to the CPU."""
+spec, takes a dropout step, a remat step and a shifted level, and runs the
+data-parallel helpers and a one-rank gloo dry run, with jax, flax, optax,
+orbax and the JAX package refused by an import hook; and its entry points
+never quietly fall back to the CPU."""
 
 import subprocess
 import sys
@@ -32,7 +34,7 @@ import swinwnet_tpu_torch
 import importlib, pkgutil
 for info in pkgutil.walk_packages(swinwnet_tpu_torch.__path__, "swinwnet_tpu_torch."):
     importlib.import_module(info.name)  # every module of the port, the new ones too
-from swinwnet_tpu_torch import apps, compat, core, data, evalharness, models, ops, physics, pipelines, train, utils
+from swinwnet_tpu_torch import apps, compat, core, data, evalharness, models, ops, parallel, physics, pipelines, train, utils
 for name in ("ops.resize", "ops.norms", "ops.window", "ops.swin_block", "models.layers", "models.swin_wnet",
              "train.losses", "train.schedule", "train.freeze", "train.trainers", "train.pipeline",
              "utils.logging", "utils.checkpoint", "compat.torch_import", "pipelines.inference",
@@ -42,7 +44,8 @@ for name in ("ops.resize", "ops.norms", "ops.window", "ops.swin_block", "models.
              "evalharness.image_metrics", "evalharness.harness", "evalharness.regression", "evalharness.plots",
              "utils.debug", "utils.profiling", "models.swin_unet", "pipelines.simple", "pipelines.split",
              "apps.viewer", "apps.viewer_state", "apps.labeler", "apps.labeler_state", "apps.gui",
-             "data.native_loader", "data.real", "data.calibration", "data.mcstas"):
+             "data.native_loader", "data.real", "data.calibration", "data.mcstas", "parallel.multihost",
+             "parallel.sharding", "parallel.dryrun"):
     assert "swinwnet_tpu_torch." + name in sys.modules, name
 m = models.SwinWNet(embed_dim=12, depths=(1, 1, 1, 1), num_heads=(3, 3, 3, 3),
                     error_matrix=True, fused_blocks=True, device="cpu")
@@ -93,6 +96,16 @@ try:
     gui.build_viewer_window()
 except ImportError as e:
     assert "PySide6" in str(e)
+d = models.SwinWNet(embed_dim=12, depths=(1, 1, 1, 1), num_heads=(3, 3, 3, 3), drop=0.1, attn_drop=0.1,
+                    drop_path=0.1, remat=True, attn_chunk=8, device="cpu")
+seg, _ = d.segment_1(torch.rand(1, 1, 20, 30), deterministic=False, generator=torch.Generator().manual_seed(0))
+seg.sum().backward()
+assert models.BasicLayer(12, 2, 3, shift_size=2)(torch.rand(1, 12, 13, 12)).shape == (1, 12, 13, 12)
+assert parallel.initialize_multihost() is False and parallel.process_batch_slice(8, 2, 1) == slice(4, 8)
+assert parallel.pad_to_multiple(np.ones((3, 2)), 4)[0].shape == (4, 2)
+out = parallel.dryrun_multichip(1, device="cpu", hw=(20, 30), model_kw=dict(
+    embed_dim=12, depths=(1, 1, 1, 1), num_heads=(3, 3, 3, 3)))
+assert np.isfinite(out["loss"]) and len(out["params"]) > 100
 bad = [n for n in sys.modules if n.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "swinwnet_tpu")]
 assert not bad, bad
 print("ok")

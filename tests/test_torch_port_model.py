@@ -115,12 +115,15 @@ def test_fused_and_unfused_layers_agree():
 
 def test_dropout_rates_of_zero_build_and_others_raise():
     """The JAX model's `drop`, `attn_drop` and `drop_path`: 0.0 (every
-    recipe in the repo) builds; dropout itself is not ported yet, so any
-    other rate raises."""
+    recipe in the repo) builds, and so does any other rate; the default
+    deterministic forward of such a model equals the rates-0 model's."""
     from swinwnet_tpu_torch.models import SwinWNet
 
     cfg = dict(embed_dim=12, depths=(1, 1, 1, 1), num_heads=(3, 3, 3, 3), device="cpu")
-    SwinWNet(**cfg, drop=0.0, attn_drop=0.0, drop_path=0.0)
-    for name in ("drop", "attn_drop", "drop_path"):
-        with pytest.raises(ValueError, match=name):
-            SwinWNet(**cfg, **{name: 0.1})
+    base = SwinWNet(**cfg, drop=0.0, attn_drop=0.0, drop_path=0.0)
+    x = torch.rand(1, 1, 20, 30, generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        want = base(x)
+        for name in ("drop", "attn_drop", "drop_path"):
+            got = SwinWNet(**cfg, **{name: 0.1})(x)
+            assert all(torch.equal(g, w) for g, w in zip(got, want)), name
