@@ -116,6 +116,19 @@
 18. data parallelism: dryrun_multichip over NCCL on every card, then two
    gloo ranks on one card at [2, 2, 250, 480] against one process on the
    full batch (loss, gradients, updated parameters, HR IoU).
+19. the user's recipes (swinwnet_tpu_torch/recipes), each through its
+   `main(argv)` as `python -m` runs it: quality_run at the published width
+   and full geometry with the flagship flags (bf16, SmoothL1SSIMLoss,
+   keep-best, flip-augment, remat, attn_chunk=8192, --fused-blocks) on 8
+   training and 6 held-out renders, one epoch a stage: ms, launches
+   against the gate and peak memory of every bf16 step at B=4, every fp32
+   eval serving call at 10 cst, finite losses, the files and their keys
+   against the JAX script's and the committed QUALITY_r05 files, seconds by
+   part; the first bf16 step of each stage (on the batch the recipe took)
+   through the kernels against their plain versions and against fp32,
+   frozen parameters the same bits; quality_continue and rl_run from the
+   checkpoint (26 cst an RL step), classical_baselines with the ground
+   truth's and the checkpoint's masks, and train_synthetic.
 
 Exits non-zero on any failure. The last lines are one JSON line on the
 kernels, the card's name and power limit (nvidia-smi), and
@@ -124,8 +137,10 @@ kernels, the card's name and power limit (nvidia-smi), and
 
 from __future__ import annotations
 
+import ast
 import contextlib
 import cProfile
+import importlib.util
 import io
 import json
 import os
@@ -144,6 +159,7 @@ from swinwnet_tpu_torch.apps import viewer
 from swinwnet_tpu_torch.apps.viewer import ViewerSession
 from swinwnet_tpu_torch.apps.viewer_state import ViewerModel
 from swinwnet_tpu_torch.compat import load_pth
+from swinwnet_tpu_torch.core import resolve_dtype
 from swinwnet_tpu_torch.data import (
     ArrayLoader,
     NativeBatcher,
@@ -200,6 +216,7 @@ from swinwnet_tpu_torch.train import (
 from swinwnet_tpu_torch.train import rl as rl_mod
 from swinwnet_tpu_torch.train.trainers import compute_dtype_of, stage3_odd_loss
 
+REPO_ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
 RL_SEED = 1  # the fine-tune's model (rl_model)
 B = 4
@@ -817,13 +834,16 @@ STAGE_TRAINS = {
 }
 
 
-def check_frozen(stage, before, after):
-    """Frozen parameters unchanged bit for bit, trainable ones changed."""
+def check_frozen(stage, before, after, grads=None):
+    """Frozen parameters unchanged bit for bit, trainable ones changed (after
+    one step, given its `grads`: those with a gradient)."""
     trains = STAGE_TRAINS[stage]
     n_frozen = n_moved = 0
     for k in before:
         same = torch.equal(before[k], after[k])
         if trains(k.split(".")[0]):
+            if grads is not None and k not in grads:
+                continue
             n_moved += 1
             if same:
                 raise SystemExit(f"{stage}: trainable parameter {k} did not change")
@@ -2236,6 +2256,281 @@ def dp_checks():
     print(f"  the one-process step with the model's build {ref_ms:.1f} ms")
 
 
+# ---------------------------------------------------------------------------
+# [19] The user's recipes
+# ---------------------------------------------------------------------------
+
+# the flagship recipe's data at full geometry, cut to two steps a stage: 8
+# train crystals x 1 render (batches of RECIPE_B), the 6 held-out x 1, one
+# noise pass
+RECIPE_B = 4
+RECIPE_DATA = ["--train-crystals", "8", "--renders-per-crystal", "1", "--eval-renders-per-crystal", "1",
+               "--noise-passes", "1", "--batch", str(RECIPE_B)]
+QUALITY_FLAGS = ["--compute-dtype", "bf16", "--sr-loss", "SmoothL1SSIMLoss", "--keep-best", "--flip-augment",
+                 "--fused-blocks", "--seg-epochs", "1", "--sr-epochs", "1", "--full-epochs", "1", *RECIPE_DATA]
+# a bf16 first step through the kernels against the same step through their
+# plain versions: the two forwards round each bf16 product at the same
+# points but their fp32 sums differ in order, so an output can round to the
+# neighbouring bf16 value (2^-8 relative); the loss, a mean over every
+# pixel, to 2e-2 relative (about five bf16 steps at the worst pixel, as
+# BLOCK_TOL). Each gradient leaf is held to the gap bf16 itself opens: the
+# kernel step's distance from the plain bf16 step, over its max, within
+# twice the plain bf16 step's distance from the fp32 step, or
+# BF16_GRAD_FLOOR where that is smaller. A one-element leaf (a
+# cross-attention gamma) is a sum over every token of products of either
+# sign that nearly cancel: its rounding error scales with the terms'
+# magnitudes, not with the result (TRAIN_SCALAR_GRAD_TOL's reason in fp32),
+# and it gets five times the floor
+BF16_LOSS_RTOL, BF16_GRAD_FLOOR, BF16_SCALAR_GRAD_FLOOR = 2e-2, 2e-2, 1e-1
+
+
+def summary_keys(script):
+    """The keys of the `summary = {...}` literal of scripts/<script>.py, the
+    JAX script the recipe ports (read as text; nothing of it is imported)."""
+    with open(os.path.join(REPO_ROOT, "scripts", f"{script}.py")) as f:
+        tree = ast.parse(f.read())
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Assign) and isinstance(node.value, ast.Dict)
+                and any(isinstance(t, ast.Name) and t.id == "summary" for t in node.targets)):
+            return [k.value for k in node.value.keys]
+    raise SystemExit(f"scripts/{script}.py has no summary literal")
+
+
+def key_tree(x, depth=3):
+    if depth == 0:
+        return None
+    if isinstance(x, dict):
+        return {k: key_tree(v, depth - 1) for k, v in x.items()}
+    if isinstance(x, list) and x and isinstance(x[0], dict):
+        return [key_tree(x[0], depth - 1)]
+    return None
+
+
+def read_json(path):
+    with open(os.path.join(REPO_ROOT, path)) as f:
+        return json.load(f)
+
+
+class StepProbe:
+    """Wraps the three supervised trainers' and RLTrainer's `train_step` and
+    the serving stages the harness and the diagnostics call: each call's
+    host ms after a synchronize, launches per kernel, batch, peak memory
+    and a step's loss. Keeps the first batch of each kind of step."""
+
+    def __init__(self):
+        self.steps, self.serving, self.first_batch, self.losses = [], [], {}, []
+
+    def _measure(self, fn, *a, **kw):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before, t0 = launches(), time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        return out, ms, [b - a_ for a_, b in zip(before, launches())], torch.cuda.max_memory_allocated() / 2 ** 30
+
+    @contextlib.contextmanager
+    def installed(self):
+        from swinwnet_tpu_torch.evalharness import harness as harness_mod
+        from swinwnet_tpu_torch.recipes import quality_run as qr_mod
+
+        probe = self
+        trainers = {SegmentatorTrainer: "stage1", UpscalerTrainer: "stage2", FullModelTrainer: "stage3",
+                    RLTrainer: "rl"}
+        saved = [(cls, "train_step", cls.train_step) for cls in trainers]
+        saved += [(mod, "inference_stages", mod.inference_stages) for mod in (harness_mod, qr_mod)]
+        for cls, kind in trainers.items():
+            def step(self, *a, _orig=cls.train_step, _kind=kind, **kw):
+                kind = _kind if _kind != "stage3" else ("stage3_even" if kw["even"] else "stage3_odd")
+                probe.first_batch.setdefault(kind, tuple(np.array(x) for x in a))
+                out, ms, n, peak = probe._measure(_orig, self, *a, **kw)
+                dtype = torch.float32 if self.compute_dtype is None else resolve_dtype(self.compute_dtype)
+                probe.steps.append((kind, ms, n, len(a[0]), peak, dtype))
+                probe.losses.append(float(out["sup_loss" if kind == "rl" else "loss"] if isinstance(out, dict) else out))
+                return out
+            cls.train_step = step
+        for mod in (harness_mod, qr_mod):
+            def stages(model, images, _orig=mod.inference_stages):
+                out, ms, n, _ = probe._measure(_orig, model, images)
+                probe.serving.append((ms, n, len(images), model.dtype))
+                return out
+            mod.inference_stages = stages
+        try:
+            yield self
+        finally:
+            for owner, name, orig in saved:
+                setattr(owner, name, orig)
+
+    def check(self, tag, kinds):
+        """Every step's and serving call's launches against the gate;
+        returns {kind: [ms, ...]} and {kind: peak GiB}."""
+        ms, peak = {}, {}
+        for kind, t, n, batch, gib, dtype in self.steps:
+            want = expected_launches(kind, batch, dtype, False, "cmajor")
+            if n != want:
+                raise SystemExit(f"{tag}: a {kind} step at B={batch} launched {n}, the gate implies {want}")
+            ms.setdefault(kind, []).append(t)
+            peak[kind] = max(peak.get(kind, 0.0), gib)
+        for t, n, batch, dtype in self.serving:
+            want = expected_launches("serve", batch, dtype, False, "cmajor")
+            if n != want:
+                raise SystemExit(f"{tag}: a serving call at B={batch} launched {n}, the gate implies {want}")
+        if set(ms) != set(kinds) or not np.isfinite(self.losses).all():
+            raise SystemExit(f"{tag}: steps of {sorted(ms)} (expected {sorted(kinds)}), losses {self.losses}")
+        return ms, peak
+
+
+def bf16_first_step(kind, batch, route):
+    """One bf16 step (compute_dtype) of the recipe's published model (remat,
+    attn_chunk=8192, the cross-attention live) from the seed's weights, with
+    the recipe's SmoothL1SSIMLoss; `route` is "kernel", "plain" (the blocks
+    through their plain versions) or "fp32" (the plain route in fp32).
+    Returns (loss, gradients, launches, parameters before, after, ms of
+    the step)."""
+    model = build_model(torch.float32, remat=True, attn_chunk=8192).train()
+    cls = {"stage1": SegmentatorTrainer, "stage2": UpscalerTrainer}.get(kind, FullModelTrainer)
+    kw = {"loss": "SmoothL1SSIMLoss"} if cls is UpscalerTrainer else (
+        {"upscaler_loss": "SmoothL1SSIMLoss"} if cls is FullModelTrainer else {})
+    trainer = cls(model, [batch], num_epochs=1, warmup_epochs=1, verbose=False,
+                  compute_dtype=None if route == "fp32" else "bfloat16", **kw)
+    before, n0 = snapshot(model), launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with plain_blocks() if route != "kernel" else contextlib.nullcontext():
+        if cls is FullModelTrainer:
+            loss = trainer.train_step(*batch, even=kind == "stage3_even")["loss"]
+        else:
+            loss = trainer.train_step(*batch)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    n = [b - a for a, b in zip(n0, launches())]
+    return float(loss), grads_of(model), n, before, snapshot(model), ms
+
+
+def compare_bf16_first_steps(probe):
+    """Each stage's first bf16 step with the kernels against the plain
+    versions' (and the fp32 step, which sets each leaf's tolerance) on the
+    batch the recipe's first step of that kind took; frozen parameters the
+    same bits; the ms of each kernel-route step (warm: the recipe ran these
+    shapes); a profile of one bf16 stage-3 odd step."""
+    step_ms = {}
+    for kind in ("stage1", "stage2", "stage3_even", "stage3_odd"):
+        batch = probe.first_batch[kind]
+        loss_k, g_k, n_k, before, after, step_ms[kind] = bf16_first_step(kind, batch, "kernel")
+        loss_p, g_p, n_p, _, _, _ = bf16_first_step(kind, batch, "plain")
+        loss_32, g_32, _, _, _, _ = bf16_first_step(kind, batch, "fp32")
+        gaps, bf16_gaps = leaf_gaps(g_k, g_p), leaf_gaps(g_p, g_32)
+        floor = lambda k: BF16_SCALAR_GRAD_FLOOR if g_p[k].numel() == 1 else BF16_GRAD_FLOOR
+        over = [k for k, g in gaps.items() if g > max(floor(k), 2 * bf16_gaps[k])]
+        worst = max(gaps, key=gaps.get)
+        rel = abs(loss_k - loss_p) / abs(loss_p)
+        want = expected_launches(kind, len(batch[0]), torch.bfloat16, False, "cmajor")
+        ok = (np.isfinite(loss_k) and rel <= BF16_LOSS_RTOL and not over and n_k == want and n_p == [0, 0, 0]
+              and g_k.keys() == g_p.keys())
+        print(f"  {kind:11s} bf16 first step: loss {loss_k:.6f} vs plain {loss_p:.6f} (rel {rel:.1e}, tol "
+              f"{BF16_LOSS_RTOL:.0e}; fp32 {loss_32:.6f}); {len(g_k)} gradients, worst {gaps[worst]:.2e} of its max "
+              f"({worst}; bf16 against fp32 there {bf16_gaps[worst]:.2e}, worst anywhere "
+              f"{max(bf16_gaps.values()):.2e}); {len(over)} leaves over their tolerance; launches {n_k} (gate: "
+              f"{want}), plain {n_p}; {step_ms[kind]:.1f} ms {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"{kind}: the bf16 step through the kernels disagrees with the plain route: {over[:5]}")
+        check_frozen(kind if kind in ("stage1", "stage2") else "stage3", before, after, g_k)
+    batch = probe.first_batch["stage3_odd"]
+    model = build_model(torch.float32, remat=True, attn_chunk=8192).train()
+    trainer = FullModelTrainer(model, [batch], num_epochs=1, warmup_epochs=1, verbose=False,
+                               compute_dtype="bfloat16", upscaler_loss="SmoothL1SSIMLoss")
+    trainer.train_step(*batch, even=False)
+    profile_call(lambda: trainer.train_step(*batch, even=False),
+                 f"one bf16 stage-3 odd step of the recipe, B={RECIPE_B}, remat")
+
+
+
+def recipes_phase():
+    """The user's recipes at the published width and full geometry; returns
+    the launches of the quality run, this phase's main path."""
+    from swinwnet_tpu_torch.recipes import classical_baselines, quality_continue, quality_run, rl_run, train_synthetic
+
+    t_phase = time.perf_counter()
+    rounded = lambda d, n=1: {k: [round(t, n) for t in v] if isinstance(v, list) else round(v, n) for k, v in d.items()}
+    with tempfile.TemporaryDirectory() as tmp:
+        q = os.path.join(tmp, "Q")
+        probe = StepProbe()
+        sb.reset_counts()
+        t0 = time.perf_counter()
+        with probe.installed():
+            summary, seconds = quality_run.main([*QUALITY_FLAGS, "--out", q])
+        torch.cuda.synchronize()
+        quality_s, total = time.perf_counter() - t0, launches()
+        step_ms, peak = probe.check("quality_run", ("stage1", "stage2", "stage3_even", "stage3_odd"))
+        if list(summary) != summary_keys("quality_run"):
+            raise SystemExit(f"quality_run: summary keys {list(summary)}")
+        for kind in ("segmentation", "upscaling", "physical"):
+            if key_tree(read_json(f"{q}_{kind}_metrics.json")) != key_tree(read_json(f"QUALITY_r05_{kind}_metrics.json")):
+                raise SystemExit(f"quality_run: {kind} metrics' keys differ from QUALITY_r05's")
+        if os.listdir(f"{q}_ckpt") != ["step_00000000.pt"]:
+            raise SystemExit("quality_run: no checkpoint")
+        gate = {k: expected_launches(k, RECIPE_B, torch.bfloat16, False, "cmajor") for k in step_ms}
+        serving = [(round(t, 1), n[0]) for t, n, _, _ in probe.serving]
+        print(f"  quality_run: {quality_s:.1f} s ({', '.join(f'{k} {v:.1f} s' for k, v in seconds.items())}); bf16 "
+              f"steps at B={RECIPE_B}, ms {rounded(step_ms)}, launches per step as the gate's {gate}; peak memory of "
+              f"a step, GiB {rounded(peak, 2)}; fp32 eval serving calls (ms, cst launches) {serving}; launches in the "
+              f"run {total}")
+        print(f"    step losses finite {[round(v, 4) for v in probe.losses]}; HR IoU@0.50 "
+              f"{summary['segmentation']['High Res']['0.50 thrashold']['IoU'][0]:.4f}, PSNR "
+              f"{summary['upscaling']['Summary Metrics']['PSNR'][0]:.2f} dB; files "
+              f"{sorted(os.path.basename(p) for p in os.listdir(tmp))}")
+
+        print("  the first bf16 step of each stage, kernels against their plain versions")
+        compare_bf16_first_steps(probe)
+
+        probe = StepProbe()
+        t0 = time.perf_counter()
+        with probe.installed():
+            cont = quality_continue.main(["--ckpt", f"{q}_ckpt", "--out", q, *RECIPE_DATA, "--sr-epochs", "1",
+                                          "--full-epochs", "1", "--fused-blocks"])
+        cont_s = time.perf_counter() - t0
+        step_ms, peak = probe.check("quality_continue", ("stage2", "stage3_even", "stage3_odd"))
+        if list(cont) != summary_keys("quality_continue") or not os.path.isdir(f"{q}_ckpt_cont"):
+            raise SystemExit("quality_continue: keys or checkpoint")
+        print(f"  quality_continue: {cont_s:.1f} s; bf16 steps at B={RECIPE_B} (the shapes warm from quality_run), "
+              f"ms {rounded(step_ms)}, at the gate's launches; peak memory of a step, GiB {rounded(peak, 2)}")
+
+        probe = StepProbe()
+        t0 = time.perf_counter()
+        with probe.installed():
+            rl = rl_run.main(["--ckpt", f"{q}_ckpt", "--out", os.path.join(tmp, "R"), *RECIPE_DATA, "--epochs", "1",
+                              "--ablation-gains", "0.5", "--fused-blocks"])
+        rl_s = time.perf_counter() - t0
+        step_ms, _ = probe.check("rl_run", ("rl",))
+        if list(rl) != summary_keys("rl_run") or not all(np.isfinite(v) for v in rl["reward_curve"]):
+            raise SystemExit("rl_run: keys or reward")
+        print(f"  rl_run: {rl_s:.1f} s; RL steps {rounded(step_ms)['rl']} ms at "
+              f"{expected_launches('rl', RECIPE_B, torch.bfloat16, False, 'cmajor')} launches (the gate's count); "
+              f"reward {rl['reward_curve']}, gain {rl['alpha']['gain_mean']:.4f}")
+
+        for mask in ("gt", "ckpt"):
+            t0 = time.perf_counter()
+            c = classical_baselines.main(["--data", "synthetic", "--eval-renders-per-crystal", "1", "--noise-passes",
+                                          "1", "--mask", mask, "--ckpt", f"{q}_ckpt", "--fused-blocks",
+                                          "--out", os.path.join(tmp, f"C{mask}")])
+            if list(c) != summary_keys("classical_baselines") or c["n_samples"] != 6:
+                raise SystemExit(f"classical_baselines --mask {mask}: keys or samples")
+            print(f"  classical_baselines --mask {mask}: {time.perf_counter() - t0:.1f} s; bilinear Peak Intensity "
+                  f"{c['baselines']['bilinear']['Peak Intensity'][0]:.4f}")
+
+        t0 = time.perf_counter()
+        syn = os.path.join(tmp, "syn")
+        train_synthetic.main(["--samples", "8", "--epochs", "1", "--rl-epochs", "1", "--out", syn])
+        # the plot needs matplotlib, which a machine may not have
+        plot = ["physical_metrics.png"] if importlib.util.find_spec("matplotlib") else []
+        if sorted(os.listdir(syn)) != sorted(["checkpoints", "physycal_metrics.json", "segmentation_metrics.json",
+                                              "upscaling_metrics.json", *plot]):
+            raise SystemExit(f"train_synthetic wrote {sorted(os.listdir(syn))}")
+        print(f"  train_synthetic: {time.perf_counter() - t0:.1f} s, files {sorted(os.listdir(syn))}")
+    print(f"  phase [19] {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
 def plan_text(C, nH, dtype, round_qkv=True):
     """A launch's plan, which body it takes, its registers and CTAs an SM."""
     p = sb.kernel_plan(C, nH, dtype, round_qkv)
@@ -2504,6 +2799,11 @@ def main() -> int:
     shift_and_chunk_checks()
     print("[18] data parallelism: dryrun_multichip over NCCL, and two ranks on one card over gloo")
     dp_checks()
+    print(f"[19] the user's recipes at the published width, [{RECIPE_B}, 2, {H}, {W}]: quality_run (bf16, "
+          f"SmoothL1SSIMLoss, keep-best, flip-augment, remat, attn_chunk=8192, fused_blocks), the first bf16 "
+          f"step of each stage against the plain versions, quality_continue, rl_run, classical_baselines, "
+          f"train_synthetic")
+    main_path = add(main_path, recipes_phase())
     print(f"  whole script {time.perf_counter() - t_start:.0f} s")
 
     print(json.dumps({"kernels": [

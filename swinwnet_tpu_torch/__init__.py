@@ -18,6 +18,8 @@ utils      JSONL metrics logging, checkpoints on torch.save
 compat     upstream .pth loading and the JAX-params bridge, both ways
 apps       the viewer CLI, the labeler and their state models
 parallel   data parallelism on torch.distributed and the multi-card dry run
+recipes    the user's programs: the quality acceptance run, its continuation,
+           the RL run, the classical baselines and the synthetic example
 
 Entry points run on the CUDA device unless the caller passes device="cpu";
 on the CPU a kernel's plain PyTorch version stands in for it.

@@ -1,6 +1,7 @@
 """Configuration dataclasses of the PyTorch port.
 
-A copy of `swinwnet_tpu/core/config.py` (`DetectorGeometry`, `ModelConfig`):
+A copy of `swinwnet_tpu/core/config.py` (`DetectorGeometry`, `ModelConfig`,
+`TrainConfig`):
 the port imports nothing of the JAX package, so it keeps its own. Published
 checkpoints use depths=(2,2,2,2), embed_dim=48, heads=(3,6,12,24), window=5,
 patch=2, which is the default here as there.
@@ -53,3 +54,24 @@ class ModelConfig:
     def effective_in_chans(self) -> int:
         """Input channels of the shared patch embedding."""
         return self.in_chans + 1 if self.error_matrix else self.in_chans
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Supervised training hyperparameters, in the vocabulary of the
+    reference trainers (Segmentator_pretrain.py:10-36, Upscaler_pretrain.py,
+    FullModel_supervised_trainer.py, Supervised_train_full_pipline.py:7-25)."""
+
+    loss: str = "CombinedLoss"  # seg loss registry key (train.losses)
+    sr_loss: str = "SmoothL1Loss"
+    num_epochs: int = 300
+    warmup_epochs: int = 10
+    lr: float = 2e-4
+    weight_decay: float = 1e-4
+    use_bf16: bool = False  # the trainers' compute_dtype="bfloat16"
+    # stage-3 joint objective weights (FullModel_supervised_trainer.py)
+    seg_weight_lr: float = 1.0
+    seg_weight_hr: float = 1.0
+    rec_weight: float = 1.0
+    batch_size: int = 8
+    seed: int = 0

@@ -50,7 +50,8 @@ from .schedule import warmup_cosine_schedule
 def compute_dtype_of(model: SwinWNet, compute_dtype):
     """Run `model` with `compute_dtype` as its compute dtype (None keeps its
     own): every module carries the dtype it computes in, the parameters stay
-    fp32."""
+    fp32. A model built with `remat` recomputes its blocks in the backward,
+    so the backward too runs inside the context."""
     if compute_dtype is None:
         yield
         return
@@ -173,7 +174,8 @@ class _BaseTrainer:
 
     def _backward_and_update(self, loss: torch.Tensor) -> None:
         self.optimizer.zero_grad()
-        loss.backward()
+        with compute_dtype_of(self.model, self.compute_dtype):  # remat recomputes in the forward's dtype
+            loss.backward()
         self.optimizer.step()
 
     def _track_best(self, val_loss: float):

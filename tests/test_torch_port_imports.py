@@ -4,7 +4,8 @@ the three stages, serves an RL request, takes an RL step, runs the
 baselines' pipelines and the eval harness on synthesized data, runs the
 viewer CLI, the labeler, the C++ batcher, the calibration and the McStas
 spec, takes a dropout step, a remat step and a shifted level, and runs the
-data-parallel helpers and a one-rank gloo dry run, with jax, flax, optax,
+data-parallel helpers and a one-rank gloo dry run, and runs the quality
+recipe at a tiny size, with jax, flax, optax,
 orbax and the JAX package refused by an import hook; and its entry points
 never quietly fall back to the CPU."""
 
@@ -45,7 +46,8 @@ for name in ("ops.resize", "ops.norms", "ops.window", "ops.swin_block", "models.
              "utils.debug", "utils.profiling", "models.swin_unet", "pipelines.simple", "pipelines.split",
              "apps.viewer", "apps.viewer_state", "apps.labeler", "apps.labeler_state", "apps.gui",
              "data.native_loader", "data.real", "data.calibration", "data.mcstas", "parallel.multihost",
-             "parallel.sharding", "parallel.dryrun"):
+             "parallel.sharding", "parallel.dryrun", "recipes.quality_run", "recipes.quality_continue",
+             "recipes.rl_run", "recipes.classical_baselines", "recipes.train_synthetic"):
     assert "swinwnet_tpu_torch." + name in sys.modules, name
 m = models.SwinWNet(embed_dim=12, depths=(1, 1, 1, 1), num_heads=(3, 3, 3, 3),
                     error_matrix=True, fused_blocks=True, device="cpu")
@@ -106,6 +108,17 @@ assert parallel.pad_to_multiple(np.ones((3, 2)), 4)[0].shape == (4, 2)
 out = parallel.dryrun_multichip(1, device="cpu", hw=(20, 30), model_kw=dict(
     embed_dim=12, depths=(1, 1, 1, 1), num_heads=(3, 3, 3, 3)))
 assert np.isfinite(out["loss"]) and len(out["params"]) > 100
+from swinwnet_tpu_torch.recipes import classical_baselines, quality_run
+lib = quality_run.make_crystal_library(1)
+imgs, msks = quality_run.render_crystals(lib, ["crystal_00"], 1, 20, 30, seed=1)
+assert imgs.shape == (1, 20, 30) and msks.any()
+assert classical_baselines.maxpool2(imgs[:, None]).shape == (1, 1, 10, 15)
+with tempfile.TemporaryDirectory() as tmp:
+    summary, _ = quality_run.main(["--tiny", "--device", "cpu", "--loader", "array", "--train-crystals", "2",
+                                   "--renders-per-crystal", "1", "--eval-renders-per-crystal", "1", "--seg-epochs",
+                                   "1", "--sr-epochs", "1", "--full-epochs", "1", "--noise-passes", "1",
+                                   "--out", tmp + "/Q"])
+    assert summary["n_eval_samples"] == 6 and os.path.isdir(tmp + "/Q_ckpt")
 bad = [n for n in sys.modules if n.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "swinwnet_tpu")]
 assert not bad, bad
 print("ok")
