@@ -103,16 +103,22 @@
    steps it fed, the calibration's ms on each device.
 17. the model's remaining features at the published width: one stage-3
    odd step in fp32 at [8, 2, 250, 480] without fused_deep (the JAX
-   default: the C = 96-384 levels unfused) with remat and without, from
-   the same weights (loss, gradients, cst launches against the gate, peak
-   memory and time of each); drop = attn_drop = drop_path = 0.1: a bf16
-   serving call at deterministic=True equal bit for bit to the rates-0
-   model's with its 22 cst, a deterministic=False stage-3 odd step at B=2
-   with no launch, one seed one loss and two seeds two, remat's gradients
-   against the plain step's and a control with other masks, the keep
-   fraction of an [8, 2, 250, 480] draw; a shifted BasicLayer on cuda
-   against the CPU at encoder L0's grid and at one that does not tile;
-   attn_chunk=64 against unchunked on an unfused level;
+   default: the C = 96-384 levels unfused) twice without remat, which must
+   give the same bits in the loss and every gradient, and once with it,
+   from the same weights (loss, gradients, cst launches against the gate,
+   peak memory and time of each); drop = attn_drop = drop_path = 0.1: a
+   bf16 serving call at deterministic=True equal bit for bit to the
+   rates-0 model's with its 22 cst, a deterministic=False stage-3 odd step
+   at B=2 with no launch, one seed one loss (and the same bits twice) and
+   two seeds two, remat's gradients against the plain step's and a control
+   with other masks, the keep fraction of an [8, 2, 250, 480] draw; a
+   shifted BasicLayer on cuda against the CPU at encoder L0's grid and at
+   one that does not tile; attn_chunk=64 against unchunked on an unfused
+   level; one fp32 step of each stage under
+   torch.use_deterministic_algorithms(True, warn_only=True), with the ops
+   that warn; the segmentation heads' bilinear resizes at B=4 and 64
+   against F.interpolate, both timed forward and backward, two backward
+   passes the same bits;
 18. data parallelism: dryrun_multichip over NCCL on every card, then two
    gloo ranks on one card at [2, 2, 250, 480] against one process on the
    full batch (loss, gradients, updated parameters, HR IoU).
@@ -128,7 +134,20 @@
    through the kernels against their plain versions and against fp32,
    frozen parameters the same bits; quality_continue and rl_run from the
    checkpoint (26 cst an RL step), classical_baselines with the ground
-   truth's and the checkpoint's masks, and train_synthetic.
+   truth's and the checkpoint's masks, and train_synthetic;
+20. entry() (swinwnet_tpu_torch/entry.py) on the card: fn(model, x) of
+   shape [1, 2, 500, 960], finite, and the same weights through the fused
+   kernels' route (10 cst) against it at PIPE_TOL fp32;
+21. the benchmark (swinwnet_tpu_torch/recipes/bench.py, `main(["--mesh"])`)
+   at 1.5 s of steady state a record: every record of bench.py, its keys,
+   its fused launches a call or step against the gate's count, its loop's
+   output finite.
+
+In bf16 each pipeline stage's mean error against the plain route is held to
+a limit from its own scale (bf16_limits): the smaller of how far bf16 moves
+it from fp32 (times 1.25) and its sources' limits carried through its own
+fp32 maps, and for a stage made from the sources no more than PIPE_TOL's
+mean; SwinUNetSR's output is held so at its source, before expm1.
 
 Exits non-zero on any failure. The last lines are one JSON line on the
 kernels, the card's name and power limit (nvidia-smi), and
@@ -149,6 +168,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -186,7 +206,8 @@ from swinwnet_tpu_torch.models import (
 )
 from swinwnet_tpu_torch.models import layers as layers_mod
 from swinwnet_tpu_torch.ops import swin_block as sb
-from swinwnet_tpu_torch.ops.norms import denormalize_piecewise, ensure_2ch
+from swinwnet_tpu_torch.ops.norms import denormalize_piecewise, ensure_2ch, normalize_piecewise
+from swinwnet_tpu_torch.ops.resize import bilinear_resize
 from swinwnet_tpu_torch.parallel import dryrun as dryrun_mod
 from swinwnet_tpu_torch.parallel import dryrun_multichip
 from swinwnet_tpu_torch.parallel.dryrun import dryrun_batch
@@ -241,14 +262,30 @@ BLOCK_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # output (2^-8 relative) becomes up to ~2^-7 of the range: 5e-2 is about six
 # such steps at the worst pixel, and the mean must stay near one tenth of one
 PIPE_TOL = {torch.float32: (1e-3, 1e-4), torch.bfloat16: (5e-2, 1e-3)}
-# RL serving compares every stage at PIPE_TOL, but for one: upscaled_norm is
-# the bf16 SR output itself (times the gain sigmoid(alpha)), unscaled by
-# expm1 or a range. The routes' rounding differences, begun in the first
-# block and carried through the upscaler's bf16 layers, leave its mean
-# error at about 1.2e-3 of its max on the card, so the mean is held to half
-# a bf16 step at its max (2^-9), its max to PIPE_TOL's. A control in
-# rl_serve (every cst launch without its pad mask) must fail the comparison
-RL_UPSCALED_MEAN_TOL = 2.0 ** -9
+# bf16 routes, kernel against plain, stage by stage: the max as PIPE_TOL's,
+# the mean from the stage's own scale (bf16_limits), the smaller of two
+# measures of it. (1) How far bf16 rounding itself moves the stage: the plain
+# route's mean distance from the same model computed in fp32, times
+# BF16_NOISE_FACTOR; the kernel rounds at the plain route's points in other
+# orders, so it should sit no farther from it. (2) Its sources' limits
+# carried through its own fp32 maps (the mask products, normalize, the RL
+# gain, expm1 and the range scaling; carried_limits): the seg maps, held to
+# PIPE_TOL's bf16 mean (1e-3) as before, and the bf16 SR output s before
+# expm1, moved by BF16_MEAN_STEPS bf16 steps at its RMS (2^-8 * rms(s)
+# each). A masked stage thus gets a small limit where its mask is small, a
+# stage after expm1 and the range scaling gets it in its own units. The
+# stages made from the sources (the masked images, norm, upscaled_denorm)
+# never exceed PIPE_TOL's mean of their scale, their limit before, either.
+# Neither measure alone would do: SwinUNetSR's tower, with no fp32
+# cross-attention trunk, rounds more than SwinWNet's, and sits farther from
+# its plain route in steps of its output than the control that drops every
+# cst pad mask sits at RL's upscaled_norm, which the mean check must refuse
+# on its own. The report of each stage prints the measures.
+BF16_NOISE_FACTOR = 1.25
+BF16_MEAN_STEPS = 2.25
+# the pipeline's stages that are not made from others by fp32 maps: the
+# input, the seg maps (probabilities) and the SR output before expm1
+BF16_SOURCES = ("images", "seg_map_lr", "seg_map_hr", "upscaled_norm")
 # (name, C, nH, token grid at B=1, launches per pipeline call in bf16)
 LEVELS = [
     ("encoder L0", 48, 3, (125, 240), 6),
@@ -334,12 +371,13 @@ VIEW_B, VIEW_CALLS, CSV_RTOL = 6, 3, 1e-5
 BATCHER_N, BATCHER_TIMED = 24, 9
 # remat against none (fp32 on the card): the recompute repeats the
 # forward's arithmetic, so the loss to 1e-6 relative and each gradient to
-# 1e-5 of its leaf's max, or to twice the largest gap between two runs of
-# the plain step where that is larger: atomic adds in the backward (the
-# bilinear resize's) sum in any order, and two plain steps measured up to
-# 1.93e-5 of a leaf's max apart. With dropout, where two plain steps
-# measured up to 3.46e-5 apart (B=2), remat's gradients are held to
-# TRAIN_GRAD_TOL against a control with other masks that must exceed it
+# 1e-5 of its leaf's max. The backward is deterministic (the bilinear resize
+# is two products by fixed interpolation matrices, ops/resize.py, where
+# F.interpolate's CUDA backward summed with atomic adds in any order), so
+# two runs of the plain step must give the same bits, and neither check
+# makes room for run-to-run noise. With dropout, remat's gradients are held
+# to REMAT_GRAD_TOL too, against a control with other masks that must
+# exceed it
 REMAT_LOSS_RTOL, REMAT_GRAD_TOL = 1e-6, 1e-5
 DROP_RATES = dict(drop=0.1, attn_drop=0.1, drop_path=0.1)
 # the dropout step runs every level unfused, the SR head's 500x960-token
@@ -690,7 +728,8 @@ def build_model(dtype, seed=SEED, **kw):
 
 def serve(dtype, batch, n_calls, rng, profile=False, **model_kw):
     """Drive the pipeline; returns (first request's stages, per-call ms,
-    launches per kernel per call, plain stages, plain ms)."""
+    launches per kernel per call, (plain stages, the plain route's stages in
+    fp32), plain ms)."""
     model = build_model(dtype, **model_kw)
     infer = SwinWNetInference(model)
     requests = [rng.uniform(0, 1e3, (batch, 2, H, W)).astype(np.float32) for _ in range(n_calls)]
@@ -718,12 +757,15 @@ def serve(dtype, batch, n_calls, rng, profile=False, **model_kw):
         infer(requests[0])
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
+        with compute_dtype_of(model, torch.float32):  # the bf16 rule's reference
+            infer(requests[0])
+            ref = {k: getattr(infer, k).clone() for k in STAGE_NAMES}
     if launches() != total:
         raise SystemExit("the plain pipeline launched a kernel")
     if profile:
         profile_call(lambda: infer(requests[0]), "one serving call")
     del model, infer
-    return first, call_ms, per_call, total, plain, plain_ms
+    return first, call_ms, per_call, total, (plain, ref), plain_ms
 
 
 PROFILES = {}  # what -> (wall ms, device-busy ms) of profile_call
@@ -754,7 +796,109 @@ def profile_call(fn, what):
         print(f"    {ms:8.3f} ms {100 * ms / max(busy, 1e-9):5.1f}%  x{count:<4d} {key[:90]}")
 
 
-def check_pipeline(dtype, batch, stages, plain, per_call, want):
+def bf16_step(t):
+    """One bf16 step at t's RMS: 2^-8 * rms(t), in float64."""
+    return 2.0 ** -8 * t.double().pow(2).mean().sqrt()
+
+
+def jitter(t, size, seed):
+    """t moved by `size` per element, up or down at random (a generator
+    seeded `seed`): a rounding difference has no sign, and a move of one
+    sign everywhere would cancel in the min-max normalization."""
+    sign = torch.randint(0, 2, t.shape, generator=torch.Generator().manual_seed(seed)) * 2 - 1
+    return t + size * sign.to(t.device, t.dtype)
+
+
+def pipeline_maps(images, seg_lr, s, gain, seg_hr, params):
+    """The serving pipeline's fp32 maps, in float64, from its sources: the
+    LR and HR seg maps and the SR output s (times `gain`, RL's
+    sigmoid(alpha)); `params` are the plain route's normalization."""
+    masked_lr = images * seg_lr
+    up = s * gain
+    denorm = denormalize_piecewise(up, params)
+    return {"images": images, "seg_map_lr": seg_lr, "images_masked_lr": masked_lr,
+            "norm": normalize_piecewise(masked_lr)[0], "upscaled_norm": up, "upscaled_denorm": denorm,
+            "seg_map_hr": seg_hr, "images_masked_hr": denorm * seg_hr}
+
+
+def carried_limits(plain, gain=None):
+    """Each stage's bf16 mean limit: the mean change of the stage when its
+    sources, recovered from the plain route's stages, move by their limits
+    (the seg maps by PIPE_TOL's bf16 mean, the SR output by BF16_MEAN_STEPS
+    steps at its RMS, each element up or down), carried through the
+    pipeline's maps."""
+    st = {k: plain[k].double() for k in STAGE_NAMES}
+    g = torch.ones((), dtype=torch.float64, device=st["images"].device) if gain is None else \
+        gain.double().reshape(-1, 1, 1, 1)
+    s, dp = st["upscaled_norm"] / g, PIPE_TOL[torch.bfloat16][1]
+    params = normalize_piecewise(st["images_masked_lr"])[1]
+    base = pipeline_maps(st["images"], st["seg_map_lr"], s, g, st["seg_map_hr"], params)
+    moved = pipeline_maps(st["images"], jitter(st["seg_map_lr"], dp, 0), jitter(s, BF16_MEAN_STEPS * bf16_step(s), 1),
+                          g, jitter(st["seg_map_hr"], dp, 2), params)
+    return {k: (moved[k] - base[k]).abs().mean().item() for k in STAGE_NAMES}
+
+
+def noise_limit(plain, ref):
+    """BF16_NOISE_FACTOR times the plain bf16 route's mean distance from the
+    fp32 `ref`."""
+    return BF16_NOISE_FACTOR * (plain.double() - ref.double()).abs().mean().item()
+
+
+def bf16_limits(plain, ref, gain=None):
+    """Each pipeline stage's bf16 mean limit: the smaller of its noise limit
+    and its carried limit, and for a stage made from the sources, no more
+    than PIPE_TOL's bf16 mean of its max. Returns (limits, the three
+    measures by stage, as text for the report)."""
+    carried = carried_limits(plain, gain)
+    limits, parts = {}, {}
+    for k in carried:
+        noise = noise_limit(plain[k], ref[k])
+        limits[k] = min(carried[k], noise)
+        parts[k] = f"noise {noise:.3e}, carried {carried[k]:.3e}"
+        if k not in BF16_SOURCES:
+            ceiling = PIPE_TOL[torch.bfloat16][1] * plain[k].abs().max().item()
+            limits[k] = min(limits[k], ceiling)
+            parts[k] += f", PIPE_TOL {ceiling:.3e}"
+    return limits, parts
+
+
+def sr_source(out, request):
+    """make_sr_fn's output taken back through the request's normalization
+    (the inverse of expm1 and the range scaling): the model's output s."""
+    params = normalize_piecewise(torch.as_tensor(request, device=out.device).double())[1]
+    lo, hi, thr = params["x_min"], params["x_max"], params["threshold"]
+    x01 = (out.double() - lo) / (hi - lo + 1e-6)
+    return torch.where(x01 > thr, torch.log1p(x01), x01)
+
+
+def bf16_compare(tag, got, plain, limits, quiet=False):
+    """`got` against the plain route, stage by stage (`limits`: stage ->
+    its mean limit, or (limit, the measures it is the smallest of)): the
+    max within PIPE_TOL's of the stage's scale (1 for probabilities, else
+    max|plain|), the mean within its limit. Returns (the stages that fail,
+    each stage's mean error over its limit)."""
+    if isinstance(limits, tuple):
+        limits, parts = limits
+    else:
+        parts = {}
+    tol_max = PIPE_TOL[torch.bfloat16][0]
+    failed, ratios = [], {}
+    for k, tol_mean in limits.items():
+        a, b = got[k].float(), plain[k].float()
+        scale = 1.0 if k.startswith("seg") else max(b.abs().max().item(), 1e-30)
+        err, mean = (a - b).abs().max().item(), (a - b).abs().mean().item()
+        ratios[k] = mean / tol_mean if tol_mean else (float("inf") if mean else 0.0)
+        ok = bool(torch.isfinite(a).all()) and err <= tol_max * scale and mean <= tol_mean
+        if not quiet:
+            measures = f"; the smallest of {parts[k]}" if k in parts else ""
+            print(f"  {tag} {k:17s} kernel vs plain: max_abs={err:.3e} (tol {tol_max * scale:.3e}) mean_abs={mean:.3e} "
+                  f"(tol {tol_mean:.3e}, {ratios[k]:.2f} of it{measures}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(k)
+    return failed, ratios
+
+
+def check_pipeline(dtype, batch, stages, plain_ref, per_call, want):
     if any(n != want for n in per_call):
         raise SystemExit(f"{dtype}: kernel launches per call {per_call}, expected {want}")
     shapes = {
@@ -767,6 +911,12 @@ def check_pipeline(dtype, batch, stages, plain, per_call, want):
         t = stages[k]
         if tuple(t.shape) != shape or not torch.isfinite(t).all():
             raise SystemExit(f"{dtype}: stage {k} has shape {tuple(t.shape)} (want {shape}) or non-finite values")
+    plain, ref = plain_ref
+    if dtype == torch.bfloat16:
+        failed, _ = bf16_compare("serving", stages, plain, bf16_limits(plain, ref))
+        if failed:
+            raise SystemExit(f"bf16 pipeline: {failed} disagree with the plain pipeline")
+        return
     tol_max, tol_mean = PIPE_TOL[dtype]
     for k in ("seg_map_lr", "seg_map_hr", "images_masked_hr"):
         a, b = stages[k].float(), plain[k].float()
@@ -1104,27 +1254,24 @@ def rollout_lines(rng):
     return lines
 
 
-def rl_stage_check(got, plain, quiet=False):
-    """Every RL-serving stage and alpha in `got` against the plain route's
-    (bf16 PIPE_TOL; upscaled_norm's mean at RL_UPSCALED_MEAN_TOL): returns
-    the stages that fail, and upscaled_norm's mean error over its
-    tolerance."""
-    failed, ratio = [], 0.0
-    tol_max = PIPE_TOL[torch.bfloat16][0]
-    for k, b in plain.items():
-        a, b = got[k].float(), b.float()
-        tol_mean = RL_UPSCALED_MEAN_TOL if k == "upscaled_norm" else PIPE_TOL[torch.bfloat16][1]
-        scale = 1.0 if k.startswith("seg") else max(b.abs().max().item(), 1e-30)
-        err, mean = (a - b).abs().max().item(), (a - b).abs().mean().item()
-        ok = bool(torch.isfinite(a).all()) and err <= tol_max * scale and mean <= tol_mean * scale
-        if k == "upscaled_norm":
-            ratio = mean / (tol_mean * scale)
-        if not quiet:
-            print(f"  RL {k:17s} {str(tuple(a.shape)):22s} kernel vs plain: max_abs={err:.3e} (tol "
-                  f"{tol_max * scale:.3e}) mean_abs={mean:.3e} (tol {tol_mean * scale:.3e}) {'ok' if ok else 'FAIL'}")
-        if not ok:
-            failed.append(k)
-    return failed, ratio
+def rl_stage_check(got, plain, ref, quiet=False):
+    """Every RL-serving stage in `got` against the plain route's under the
+    bf16 rule (bf16_limits against the fp32 `ref`; the gain sigmoid(alpha)
+    is one of the maps), and alpha, the fp32 policy's output, at PIPE_TOL
+    bf16 of its max. Returns (the stages that fail, each stage's mean error
+    over its limit)."""
+    stages = {k: plain[k] for k in STAGE_NAMES}
+    failed, ratios = bf16_compare("RL", got, stages, bf16_limits(stages, ref, torch.sigmoid(plain["alpha"])), quiet)
+    a, b = got["alpha"].float(), plain["alpha"].float()
+    tol_max, tol_mean = (t * b.abs().max().item() for t in PIPE_TOL[torch.bfloat16])
+    err, mean = (a - b).abs().max().item(), (a - b).abs().mean().item()
+    ok = bool(torch.isfinite(a).all()) and err <= tol_max and mean <= tol_mean
+    if not quiet:
+        print(f"  RL alpha             kernel vs plain: max_abs={err:.3e} (tol {tol_max:.3e}) mean_abs={mean:.3e} "
+              f"(tol {tol_mean:.3e}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failed.append("alpha")
+    return failed, ratios
 
 
 def rl_serve(rng, n_calls=3):
@@ -1158,10 +1305,13 @@ def rl_serve(rng, n_calls=3):
         infer(requests[0])
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
+        with compute_dtype_of(infer.model, torch.float32):  # the bf16 rule's reference
+            infer(requests[0])
+            ref = {k: getattr(infer, k).clone() for k in names}
     want = expected_launches("serve", RL_B, bf16, False, "cmajor")
     if launches() != total or any(n != want for n in per_call):
         raise SystemExit(f"RL serving: launches per call {per_call} (gate: {want}), or the plain route launched")
-    failed, _ = rl_stage_check(first, plain)
+    failed, _ = rl_stage_check(first, plain, ref)
     if failed:
         raise SystemExit(f"RL serving: {failed} disagree with the plain route or are not finite")
     # a control: the first request again with every cst launch ignoring its
@@ -1173,11 +1323,12 @@ def rl_serve(rng, n_calls=3):
         torch.cuda.synchronize()
     finally:
         sb._kernel_call = call
-    caught, ratio = rl_stage_check({k: getattr(infer, k) for k in names}, plain, quiet=True)
+    caught, ratios = rl_stage_check({k: getattr(infer, k) for k in names}, plain, ref, quiet=True)
+    ok = ratios["upscaled_norm"] > 1.0
     print(f"  control, every cst launch without its pad mask: fails at {caught}; upscaled_norm's mean error "
-          f"{ratio:.2f}x its tolerance {'ok' if caught else 'FAIL'}")
-    if not caught:
-        raise SystemExit("RL serving: the stage comparison does not catch a dropped pad mask")
+          f"{ratios['upscaled_norm']:.2f}x its limit (the mean check alone must refuse it) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("RL serving: the upscaled_norm mean check does not catch a dropped pad mask")
     print(f"  RL serving launches per call [cst, row-major, wide] {per_call} (gate: {want}); alpha "
           f"{[round(v, 4) for v in first['alpha'].flatten().tolist()]}")
     profile_call(lambda: infer(requests[0]), "one RL serving call")
@@ -1400,35 +1551,29 @@ SR_FP32_RATIO = 1.25
 
 def sr_against_fp32(model, fn, request, got, unfused_out):
     """SwinUNetSR's bf16 output through make_sr_fn on the kernel route:
-    against the kernel's plain versions (the same cast points) at PIPE_TOL's
-    max, and its mean at RL_UPSCALED_MEAN_TOL; and, since the unfused blocks
-    round at other points, against the fp32 model beside the
-    fused_blocks=False route: no farther from it by more than
-    SR_FP32_RATIO, in max and mean.
-
-    The mean is not held at PIPE_TOL's 1e-3: that limit is a tenth of a
-    bf16 step because the pipeline's last stage multiplies the SR output by
-    the seg map, which zeroes most pixels. make_sr_fn's output is the
-    unmasked bf16 SR output put through expm1 and each image's range, so
-    every pixel carries its share of bf16 rounding, and the routes'
-    differences, begun in the first block, are carried through the tower's
-    bf16 layers (1.085e-3 of the max on the card): the limit RL serving
-    holds its unmasked bf16 SR output to, half a bf16 step at the max
-    (RL_UPSCALED_MEAN_TOL, 2^-9), applies."""
-    bf16 = torch.bfloat16
+    against the kernel's plain versions (the same cast points) under the
+    bf16 rule at its source, the model's output s before expm1 and the
+    range scaling (sr_source; its mean limit the smaller of its noise limit
+    against the fp32 model and BF16_MEAN_STEPS bf16 steps at its RMS), and
+    after them at PIPE_TOL's max; and, since the unfused blocks round at
+    other points, against the fp32 model beside the fused_blocks=False
+    route: no farther from it by more than SR_FP32_RATIO, in max and
+    mean."""
     with plain_blocks():
         plain = fn(request)
-    a, b = got.float(), plain.float()
-    scale = b.abs().max().item()
-    err, mean = (a - b).abs().max().item(), (a - b).abs().mean().item()
-    tol_max, tol_mean = PIPE_TOL[bf16][0] * scale, RL_UPSCALED_MEAN_TOL * scale
-    ok = bool(torch.isfinite(a).all()) and err <= tol_max and mean <= tol_mean
-    print(f"  SwinUNetSR output, against the kernel's plain versions: max_abs={err:.3e} (tol {tol_max:.3e}) "
-          f"mean_abs={mean:.3e} (tol {tol_mean:.3e}, {mean / scale:.3e} of the max) {'ok' if ok else 'FAIL'}")
-    if not ok:
-        raise SystemExit("SwinUNetSR: disagrees with the kernel's plain versions or is not finite")
     with unfused(model), compute_dtype_of(model, torch.float32):
         ref = fn(request).float()
+    s_got, s_plain, s_ref = (sr_source(t, request) for t in (got, plain, ref))
+    steps, noise = BF16_MEAN_STEPS * bf16_step(s_plain).item(), noise_limit(s_plain, s_ref)
+    err = (got.float() - plain.float()).abs().max().item()
+    tol_max = PIPE_TOL[torch.bfloat16][0] * plain.float().abs().max().item()
+    failed, _ = bf16_compare("SwinUNetSR output before expm1 (s), against the kernel's plain versions:",
+                             {"s": s_got}, {"s": s_plain},
+                             ({"s": min(steps, noise)}, {"s": f"noise {noise:.3e}, carried {steps:.3e}"}))
+    print(f"  SwinUNetSR output after expm1, against the kernel's plain versions: max_abs={err:.3e} (tol "
+          f"{tol_max:.3e}) {'ok' if err <= tol_max else 'FAIL'}")
+    if failed or not err <= tol_max:
+        raise SystemExit("SwinUNetSR: disagrees with the kernel's plain versions or is not finite")
     scale = ref.abs().max().item()
     dist = {name: ((a.float() - ref).abs().max().item() / scale, (a.float() - ref).abs().mean().item() / scale)
             for name, a in (("kernel", got), ("fused_blocks=False", unfused_out))}
@@ -1569,9 +1714,13 @@ def split_serve(rng, n_calls=3):
     worst = max(((got[k].float() - want[k].float()).abs().max().item(), k) for k in STAGE_NAMES)
     print(f"  split route: launches per call {per_call} (gate: {gate}); stages equal bit for bit to split=False: "
           f"{len(same)}/{len(STAGE_NAMES)}, largest difference {worst[0]:.3e} ({worst[1]})")
-    for k in STAGE_NAMES:
-        if k not in same:
-            pipe_compare(f"split {k}", got[k], want[k], bf16, relative=not k.startswith("seg"))
+    if len(same) < len(STAGE_NAMES):
+        with compute_dtype_of(model, torch.float32):
+            single(requests[0])
+            ref = {k: getattr(single, k).clone() for k in STAGE_NAMES}
+        failed, _ = bf16_compare("split", got, want, bf16_limits(want, ref))
+        if failed:
+            raise SystemExit(f"split: {failed} disagree with split=False")
     print(f"  split route per call {', '.join(f'{t:.1f}' for t in split_ms)} ms (mean {np.mean(split_ms):.1f}); "
           f"split=False {', '.join(f'{t:.1f}' for t in single_ms)} ms (mean {np.mean(single_ms):.1f})")
     del model, single, split
@@ -1996,23 +2145,22 @@ def grad_gap(got, want):
     return gaps[name], name
 
 
+def same_bits(got, want):
+    """The leaves of `got` whose bits differ from `want`'s."""
+    return [k for k in want if not torch.equal(got[k], want[k])]
+
+
 def remat_agrees(remat, plain, again):
-    """Remat's gradients against the plain step's, leaf by leaf: within
-    REMAT_GRAD_TOL of the leaf's max, or within twice the largest gap
-    between two runs of the plain step (the backward's atomic adds, as in
-    the bilinear resize's, sum in any order, and a leaf's gap between two
-    runs is one draw of that noise). A recompute that dropped other
-    elements than the forward would be off by far more. Returns (ok,
-    report)."""
-    gaps, spread = leaf_gaps(remat, plain), leaf_gaps(again, plain)
-    floor = 2 * max(spread.values())
-    over = [k for k, g in gaps.items() if g > max(REMAT_GRAD_TOL, floor)]
-    worst, rr = max(gaps, key=gaps.get), max(spread, key=spread.get)
-    above = sum(g > REMAT_GRAD_TOL for g in gaps.values())
-    return not over and remat.keys() == plain.keys(), (
-        f"worst {gaps[worst]:.2e} of its max ({worst}); the plain step run twice differs by up to "
-        f"{spread[rr]:.2e} ({rr}); {above} leaves above {REMAT_GRAD_TOL:.0e}, {len(over)} above twice the "
-        f"largest run-to-run gap")
+    """The plain step run twice gives the same bits in every leaf; remat's
+    gradients are within REMAT_GRAD_TOL of each leaf's max of the plain
+    step's. Returns (ok, report)."""
+    gaps, differ = leaf_gaps(remat, plain), same_bits(again, plain)
+    worst = max(gaps, key=gaps.get)
+    over = [k for k, g in gaps.items() if g > REMAT_GRAD_TOL]
+    return not over and not differ and remat.keys() == plain.keys() == again.keys(), (
+        f"worst {gaps[worst]:.2e} of its max ({worst}), {len(over)} leaves above {REMAT_GRAD_TOL:.0e}; the plain "
+        f"step run twice: {len(plain) - len(differ)} of {len(plain)} leaves the same bits"
+        + (f" (differ: {differ[:4]})" if differ else ""))
 
 
 def grads_of(model):
@@ -2047,10 +2195,11 @@ def remat_steps(batch):
     (l0, g0, n0, ms0, m0), (l1, g1, n1, ms1, m1) = runs["plain"], runs["remat"]
     same, report = remat_agrees(g1, g0, runs["plain again"][1])
     rel = abs(l1 - l0) / abs(l0)
-    ok = np.isfinite(l0) and rel <= REMAT_LOSS_RTOL and same and n0 == n1 == runs["plain again"][2] == want
+    ok = (np.isfinite(l0) and rel <= REMAT_LOSS_RTOL and same and runs["plain again"][0] == l0
+          and n0 == n1 == runs["plain again"][2] == want)
     print(f"  remat, stage-3 odd step fp32 B={TRAIN_B} without fused_deep: loss {l1:.6f} vs {l0:.6f} without "
-          f"(rel {rel:.1e}, tol {REMAT_LOSS_RTOL:.0e}); {len(g0)} gradients, {report}; launches {n1} and {n0} "
-          f"(gate: {want}) {'ok' if ok else 'FAIL'}")
+          f"(rel {rel:.1e}, tol {REMAT_LOSS_RTOL:.0e}), the plain step again {runs['plain again'][0]:.9g} vs "
+          f"{l0:.9g}; {len(g0)} gradients, {report}; launches {n1} and {n0} (gate: {want}) {'ok' if ok else 'FAIL'}")
     print(f"  second step: remat {ms1:.1f} ms, peak {m1:.2f} GiB; without {ms0:.1f} ms, peak {m0:.2f} GiB")
     if not ok:
         raise SystemExit("remat: the step disagrees with the step without it")
@@ -2114,14 +2263,14 @@ def dropout_checks(rng):
         del model
     (l0, g0, n0, ms0), (l1, g1, n1, ms1) = runs[False], runs[True]
     gap, name = grad_gap(g1, g0)
-    spread, control = grad_gap(g_again, g0)[0], grad_gap(g_other, g0)[0]
+    differ, control = same_bits(g_again, g0), grad_gap(g_other, g0)[0]
     rel = abs(l1 - l0) / abs(l0)
-    ok = (np.isfinite(l0) and n0 == n1 == [0, 0, 0] and again == l0 and other != l0
-          and rel <= REMAT_LOSS_RTOL and g1.keys() == g0.keys() and gap <= TRAIN_GRAD_TOL < control)
-    print(f"  deterministic=False, stage-3 odd step fp32 B={DROP_B}: loss {l0:.6f} (seed 0), {again:.6f} (seed 0 "
-          f"again), {other:.6f} (seed 1); launches {n0}; with remat loss {l1:.6f} (rel {rel:.1e}), gradients worst "
-          f"{gap:.2e} of its max ({name}; tol {TRAIN_GRAD_TOL:.0e}; the plain step run twice {spread:.2e}); the "
-          f"control, remat with seed 1's masks, {control:.2e} {'ok' if ok else 'FAIL'}")
+    ok = (np.isfinite(l0) and n0 == n1 == [0, 0, 0] and again == l0 and other != l0 and not differ
+          and rel <= REMAT_LOSS_RTOL and g1.keys() == g0.keys() and gap <= REMAT_GRAD_TOL < control)
+    print(f"  deterministic=False, stage-3 odd step fp32 B={DROP_B}: loss {l0:.9g} (seed 0), {again:.9g} (seed 0 "
+          f"again), {other:.6f} (seed 1); launches {n0}; seed 0 twice: {len(g0) - len(differ)} of {len(g0)} leaves "
+          f"the same bits; with remat loss {l1:.6f} (rel {rel:.1e}), gradients worst {gap:.2e} of its max ({name}; "
+          f"tol {REMAT_GRAD_TOL:.0e}); the control, remat with seed 1's masks, {control:.2e} {'ok' if ok else 'FAIL'}")
     print(f"  the dropout step {ms0:.1f} ms, with remat {ms1:.1f} ms (first steps)")
     if not ok:
         raise SystemExit("dropout at deterministic=False: a check failed")
@@ -2134,6 +2283,74 @@ def dropout_checks(rng):
     if abs(frac - 0.9) > 0.005:
         raise SystemExit("dropout keeps the wrong fraction")
     return total
+
+
+def nondeterministic_ops(batch):
+    """One fp32 step of each training stage (fused_blocks, no fused_deep)
+    under torch.use_deterministic_algorithms(True, warn_only=True): the
+    first line of each warning by stage. The mode is switched off again
+    whatever happens."""
+    found = {}
+    for kind in ("stage1", "stage2", "stage3_even", "stage3_odd"):
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                first_step(kind, batch, plain=False)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        found[kind] = sorted({str(w.message).strip().splitlines()[0][:200] for w in caught})
+        print(f"  {kind:11s} under use_deterministic_algorithms(warn_only=True): {len(found[kind])} kinds of warning")
+        for msg in found[kind]:
+            print(f"    {msg}")
+    return found
+
+
+# the resize's two products against F.interpolate: factors 2 and 4 make
+# every lerp weight exact in both, so the forms differ by the rounding of
+# a two-term sum, 1e-6 of the max (tests/test_torch_port_resize.py)
+RESIZE_TOL = 1e-6
+
+
+def resize_checks(gen):
+    """The segmentation heads' two resizes, [b, 1, 125, 240] up 2 and 4, at
+    b = B and SEG_B: the forward against F.interpolate; forward, and forward
+    and backward, timed both ways (CUDA events); whether two backward passes
+    of one cotangent give the same bits, both ways. Returns the times."""
+    times = {}
+    for batch in (B, SEG_B):
+        for up in (2, 4):
+            out_hw = (125 * up, 240 * up)
+            x = torch.randn(batch, 1, 125, 240, generator=gen).cuda()
+            g = torch.randn(batch, 1, *out_hw, generator=gen).cuda()
+            forms = {"two products": lambda t: bilinear_resize(t, *out_hw),
+                     "F.interpolate": lambda t: F.interpolate(t, size=out_hw, mode="bilinear", align_corners=False)}
+            row, bits = {}, {}
+            for name, f in forms.items():
+                xr = x.clone().requires_grad_(True)
+
+                def fwd_bwd():
+                    xr.grad = None
+                    f(xr).backward(g)
+
+                row[name] = (cuda_ms(lambda: f(x), 10), cuda_ms(fwd_bwd, 10))
+                grads = []
+                for _ in range(2):
+                    fwd_bwd()
+                    grads.append(xr.grad.clone())
+                bits[name] = torch.equal(grads[0], grads[1])
+            want = forms["F.interpolate"](x)
+            err = (bilinear_resize(x, *out_hw) - want).abs().max().item() / want.abs().max().item()
+            times[(batch, up)] = row
+            ok = err <= RESIZE_TOL and bits["two products"]
+            print(f"  resize [{batch}, 1, 125, 240] x{up}: two products fwd {row['two products'][0]:.4f} ms, fwd+bwd "
+                  f"{row['two products'][1]:.4f} ms; F.interpolate fwd {row['F.interpolate'][0]:.4f} ms, fwd+bwd "
+                  f"{row['F.interpolate'][1]:.4f} ms; forward {err:.2e} of max apart (tol {RESIZE_TOL:.0e}); two "
+                  f"backward passes the same bits: two products {bits['two products']}, F.interpolate "
+                  f"{bits['F.interpolate']} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit("the bilinear resize disagrees with F.interpolate or its backward is not deterministic")
+    return times
 
 
 def shift_and_chunk_checks():
@@ -2531,6 +2748,102 @@ def recipes_phase():
     return total
 
 
+# ---------------------------------------------------------------------------
+# [20] entry(), [21] the benchmark
+# ---------------------------------------------------------------------------
+
+
+def entry_check():
+    """entry() on the card: fn(model, x) is [1, 2, 500, 960], finite, and
+    the same weights through the fused kernels' route (every level the gate
+    admits) agree with it at PIPE_TOL fp32. Returns (ms a call, launches)."""
+    from swinwnet_tpu_torch.entry import entry
+
+    fn, (model, x) = entry()
+    fn(model, x)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(model, x)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    ok = tuple(out.shape) == (1, 2, 2 * H, 2 * W) and bool(torch.isfinite(out).all())
+    print(f"  entry(): fn(model, x) {tuple(out.shape)}, finite {ok}, {ms:.1f} ms (every level unfused, fp32, "
+          f"as the JAX entry)")
+    if not ok:
+        raise SystemExit("entry(): wrong shape or non-finite output")
+    levels = [m for m in model.modules() if isinstance(m, BasicLayer)]
+    for m in levels:
+        m.fused_blocks = True
+    sb.reset_counts()
+    try:
+        fused = fn(model, x)
+        torch.cuda.synchronize()
+    finally:
+        for m in levels:
+            m.fused_blocks = False
+    n = launches()
+    want = expected_launches("serve", 1, torch.float32, False, "cmajor")
+    if n != want:
+        raise SystemExit(f"entry(): the fused route launched {n} (gate: {want})")
+    pipe_compare("entry() images_masked_hr, the 10 cst launches (kernel) against every level unfused (plain):",
+                 fused, out, torch.float32, relative=True)
+    return ms, n
+
+
+BENCH_TARGET_S = 1.5  # seconds of steady state a record in [21]
+BENCH_KEYS = {"name", "kind", "batch", "dtype", "images_per_sec", "iters", "steady_state_s", "fused_launches",
+              "peak_mem_gib", "device", "power_limit_w"}
+
+
+def bench_expected(rec):
+    """The gate's fused launches a call or a step of a bench record."""
+    if rec["name"] == "seg_only_b64_bf16":
+        return tower_launches((H, W), rec["batch"] // rec.get("devices", 1), torch.bfloat16, False, "cmajor", False)
+    if rec["kind"].startswith("serving") and rec.get("fused_blocks"):
+        return expected_launches("serve", rec["batch"] // rec.get("devices", 1), resolve_dtype(rec["dtype"]), False,
+                                 "cmajor")
+    return [0, 0, 0]
+
+
+def bench_phase():
+    """recipes.bench.main(["--mesh"]) at BENCH_TARGET_S a record, every
+    record: its keys, its fused launches against the gate (the loops raise
+    on a non-finite output or loss). Returns the summary."""
+    from swinwnet_tpu_torch.recipes import bench
+
+    saved = {k: os.environ.get(k) for k in ("SWINWNET_BENCH_TARGET_S", "SWINWNET_BENCH_CONFIGS")}
+    os.environ["SWINWNET_BENCH_TARGET_S"] = str(BENCH_TARGET_S)
+    os.environ.pop("SWINWNET_BENCH_CONFIGS", None)
+    t0 = time.perf_counter()
+    try:
+        summary = bench.main(["--mesh"])
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    bad = []
+    for rec in summary["records"]:
+        keys = set(BENCH_KEYS)
+        if rec["kind"] == "serving_full_pipeline":
+            keys |= {"gflops_per_image", "mfu_pct"} | ({"latency_ms_per_image"} if rec["batch"] == 1 else set())
+        if rec["name"].endswith("_mesh"):
+            keys |= {"devices", "images_per_sec_per_card"}
+        want = bench_expected(rec)
+        ok = keys <= rec.keys() and rec["fused_launches"] == want and np.isfinite(rec["images_per_sec"])
+        print(f"  {rec['name']:30s} {rec['images_per_sec']:10.2f} images/s, {rec['iters']} iterations, peak "
+              f"{rec['peak_mem_gib']:.2f} GiB, fused launches {rec['fused_launches']} (gate: {want}) "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            bad.append(rec["name"])
+    names = [r["name"] for r in summary["records"]]
+    if bad or sorted(names) != sorted(bench.RECORD_NAMES):
+        raise SystemExit(f"bench: records {bad} fail their checks, or the records are {names}")
+    print(f"  phase [21] {time.perf_counter() - t0:.1f} s")
+    return summary
+
+
 def plan_text(C, nH, dtype, round_qkv=True):
     """A launch's plan, which body it takes, its registers and CTAs an SM."""
     p = sb.kernel_plan(C, nH, dtype, round_qkv)
@@ -2794,9 +3107,13 @@ def main() -> int:
     if sum(r[4] for r in wide_levels) != pc_w[0][2] or sum(r[4] for r in row_levels) != expected_launches(
             "stage1", TRAIN_B, fp32, True, "cmajor")[1]:
         raise SystemExit("the timed launches are not those of the path")
-    print("[17] the model's remaining features at the published width: remat, dropout, shifted windows, attn_chunk")
-    main_path = add(main_path, remat_steps(training_batches(1, TRAIN_B, rng)[0]), dropout_checks(rng))
+    print("[17] the model's remaining features at the published width: remat, dropout, shifted windows, "
+          "attn_chunk; a deterministic backward")
+    batch17 = training_batches(1, TRAIN_B, rng)[0]
+    main_path = add(main_path, remat_steps(batch17), dropout_checks(rng))
     shift_and_chunk_checks()
+    nondeterministic_ops(batch17)
+    resize_checks(gen)
     print("[18] data parallelism: dryrun_multichip over NCCL, and two ranks on one card over gloo")
     dp_checks()
     print(f"[19] the user's recipes at the published width, [{RECIPE_B}, 2, {H}, {W}]: quality_run (bf16, "
@@ -2804,6 +3121,12 @@ def main() -> int:
           f"step of each stage against the plain versions, quality_continue, rl_run, classical_baselines, "
           f"train_synthetic")
     main_path = add(main_path, recipes_phase())
+    print("[20] entry(): the published model's serving function on its example image")
+    entry_check()
+    print(f"[21] the benchmark: swinwnet_tpu_torch.recipes.bench, every record at {BENCH_TARGET_S} s of steady state")
+    before = launches()
+    bench_phase()
+    main_path = add(main_path, [b - a for a, b in zip(before, launches())])
     print(f"  whole script {time.perf_counter() - t_start:.0f} s")
 
     print(json.dumps({"kernels": [

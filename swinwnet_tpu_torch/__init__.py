@@ -19,7 +19,10 @@ compat     upstream .pth loading and the JAX-params bridge, both ways
 apps       the viewer CLI, the labeler and their state models
 parallel   data parallelism on torch.distributed and the multi-card dry run
 recipes    the user's programs: the quality acceptance run, its continuation,
-           the RL run, the classical baselines and the synthetic example
+           the RL run, the classical baselines, the synthetic example and
+           the benchmark
+entry      `entry()`, the flagship serving function with its example image,
+           and `dryrun_multichip`
 
 Entry points run on the CUDA device unless the caller passes device="cpu";
 on the CPU a kernel's plain PyTorch version stands in for it.

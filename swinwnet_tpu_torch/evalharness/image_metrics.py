@@ -16,9 +16,9 @@ from typing import Dict
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from ..core.device import full_fp32
+from ..ops.conv import conv2d
 
 METRIC_NAMES = ("PixelAccuracy", "IoU", "Dice", "Precision", "Recall")
 
@@ -98,7 +98,7 @@ def _ssim_map(pred, target, data_range, kernel_size, sigma, k1, k2) -> torch.Ten
     # the five local means as one depthwise VALID convolution with the shared kernel
     maps = torch.stack([pred, target, pred * pred, target * target, pred * target])
     with full_fp32():
-        blurred = F.conv2d(maps.reshape(5 * B * C, 1, H, W), kern)
+        blurred = conv2d(maps.reshape(5 * B * C, 1, H, W), kern)
     mu_p, mu_t, mu_pp, mu_tt, mu_pt = blurred.reshape(5, B, C, *blurred.shape[2:])
     c1, c2 = (k1 * data_range) ** 2, (k2 * data_range) ** 2
     sigma_p = mu_pp - mu_p * mu_p

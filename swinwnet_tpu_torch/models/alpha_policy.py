@@ -16,6 +16,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..core.device import full_fp32, resolve_device
+from ..ops.conv import conv2d
 from .swin_wnet import init_weights
 
 
@@ -39,7 +40,7 @@ class AlphaPolicy(nn.Module):
     @full_fp32()
     def forward(self, x: torch.Tensor):
         """x: [B, 2, H, W] (the normalized masked LR pattern) -> (mu, std), each [B, 1]."""
-        y = F.relu(self.conv(x))
+        y = F.relu(conv2d(x, self.conv.weight, self.conv.bias, padding=1))
         mu = self.fc(y.mean(dim=(2, 3)))  # AdaptiveAvgPool2d(1) + Flatten
         return mu, torch.ones_like(mu)  # log_std fixed at 0 (RL_policy.py:17-19)
 

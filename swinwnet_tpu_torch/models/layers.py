@@ -49,6 +49,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..core.device import full_fp32
+from ..ops.conv import conv2d as det_conv2d
 from ..ops.resize import bilinear_resize
 from ..ops.swin_block import fused_block_autodiff, kernel_plan
 from ..ops.window import (
@@ -76,9 +77,10 @@ def layer_norm(x: torch.Tensor, ln: nn.LayerNorm, dtype: torch.dtype) -> torch.T
 
 
 def conv2d(x: torch.Tensor, conv: nn.Conv2d, dtype: torch.dtype, **kw) -> torch.Tensor:
-    """A cuDNN convolution in the compute dtype (fp32 at full fp32)."""
+    """A cuDNN convolution in the compute dtype (fp32 at full fp32), its
+    backward deterministic (`ops.conv`)."""
     with full_fp32(dtype):
-        return F.conv2d(x.to(dtype), conv.weight.to(dtype), conv.bias.to(dtype), **kw)
+        return det_conv2d(x.to(dtype), conv.weight.to(dtype), conv.bias.to(dtype), **kw)
 
 
 def dropout(x: torch.Tensor, rate: float, deterministic: bool,

@@ -11,6 +11,9 @@ rl_run               the REINFORCE fine-tune from a quality checkpoint, with
 classical_baselines  the bilinear and pooling baselines through the same
                      physics
 train_synthetic      a miniature of the whole lifecycle on synthetic data
+bench                the throughput benchmark: serving and training
+                     records on the card (no --device: it measures only
+                     on the card)
 
 Each runs on the card unless given `--device cpu`; `--fused-blocks` sends the
 levels the gate admits through the fused Swin-block kernel.

@@ -5,7 +5,7 @@ baselines' pipelines and the eval harness on synthesized data, runs the
 viewer CLI, the labeler, the C++ batcher, the calibration and the McStas
 spec, takes a dropout step, a remat step and a shifted level, and runs the
 data-parallel helpers and a one-rank gloo dry run, and runs the quality
-recipe at a tiny size, with jax, flax, optax,
+recipe at a tiny size, and imports the benchmark and `entry`, with jax, flax, optax,
 orbax and the JAX package refused by an import hook; and its entry points
 never quietly fall back to the CPU."""
 
@@ -47,7 +47,8 @@ for name in ("ops.resize", "ops.norms", "ops.window", "ops.swin_block", "models.
              "apps.viewer", "apps.viewer_state", "apps.labeler", "apps.labeler_state", "apps.gui",
              "data.native_loader", "data.real", "data.calibration", "data.mcstas", "parallel.multihost",
              "parallel.sharding", "parallel.dryrun", "recipes.quality_run", "recipes.quality_continue",
-             "recipes.rl_run", "recipes.classical_baselines", "recipes.train_synthetic"):
+             "recipes.rl_run", "recipes.classical_baselines", "recipes.train_synthetic", "recipes.bench",
+             "entry"):
     assert "swinwnet_tpu_torch." + name in sys.modules, name
 m = models.SwinWNet(embed_dim=12, depths=(1, 1, 1, 1), num_heads=(3, 3, 3, 3),
                     error_matrix=True, fused_blocks=True, device="cpu")
@@ -119,6 +120,10 @@ with tempfile.TemporaryDirectory() as tmp:
                                    "1", "--sr-epochs", "1", "--full-epochs", "1", "--noise-passes", "1",
                                    "--out", tmp + "/Q"])
     assert summary["n_eval_samples"] == 6 and os.path.isdir(tmp + "/Q_ckpt")
+from swinwnet_tpu_torch import entry as entry_mod
+from swinwnet_tpu_torch.recipes import bench
+assert entry_mod.dryrun_multichip is parallel.dryrun_multichip
+assert bench.steady_iters(lambda n: None, 0.0)[0] == 3 and "full_b64_bf16" in bench.RECORD_NAMES
 bad = [n for n in sys.modules if n.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "swinwnet_tpu")]
 assert not bad, bad
 print("ok")

@@ -82,7 +82,7 @@ def test_window_pad_mask(hw):
 
 @pytest.mark.parametrize("src,dst", [((25, 30), (50, 60)), ((125, 240), (250, 480)), ((12, 20), (5, 7))])
 def test_bilinear_resize(src, dst):
-    """F.interpolate(bilinear, align_corners=False) against the JAX gather
+    """The port's bilinear resize (two fixed products) against the JAX gather
     form, up and down."""
     x = np.random.default_rng(4).normal(size=(2, 1, *src)).astype(np.float32)
     _close(resize.bilinear_resize(torch.from_numpy(x), *dst), jresize.bilinear_resize(jnp.asarray(x), *dst), rtol=2e-6)
