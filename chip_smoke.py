@@ -142,6 +142,27 @@
    at 1.5 s of steady state a record: every record of bench.py, its keys,
    its fused launches a call or step against the gate's count, its loop's
    output finite.
+22. the compiled programs (core/graphs.py: a CUDA graph captured once per
+   input shape and replayed) at the published width and full geometry:
+   make_inference_fn in bf16 (B=4 and B=1), in fp32 and on the nmajor
+   route, make_split_inference_fn and make_rl_inference_fn against the same
+   pipelines run eagerly on the same weights (the same bits, else
+   PIPE_TOL), launches a replay against the gate, an earlier call's
+   tensors intact after the next, a new batch size and a replaced Parameter
+   capturing again, load_state_dict not; the split programs against the
+   single one bit for bit; then four captured training steps of each stage
+   (fp32 B=8 with fused_deep, bf16 B=4 with remat) against four eager ones
+   from the same weights and batches, the learning rate doubling between
+   steps 2 and 3: losses and every leaf (the same bits, else [4]'s
+   limits), frozen leaves, launches a step; and a control at epoch 0's rate
+   throughout that must fail after step 3. Times: ms a call or step of the
+   program and of eager (median of 10, host clock) with the device-busy
+   share of one profiled call each.
+
+The serving and training phases ([3], [4], [5], [7], [11]-[14],
+[17], [19], [21]) run through the programs because their callers do; a
+route that swaps functions in at run time (the plain versions, the
+pad-mask control) runs under `core.graphs.run_eagerly()`.
 
 In bf16 each pipeline stage's mean error against the plain route is held to
 a limit from its own scale (bf16_limits): the smaller of how far bf16 moves
@@ -179,7 +200,7 @@ from swinwnet_tpu_torch.apps import viewer
 from swinwnet_tpu_torch.apps.viewer import ViewerSession
 from swinwnet_tpu_torch.apps.viewer_state import ViewerModel
 from swinwnet_tpu_torch.compat import load_pth
-from swinwnet_tpu_torch.core import resolve_dtype
+from swinwnet_tpu_torch.core import graphs, resolve_dtype
 from swinwnet_tpu_torch.data import (
     ArrayLoader,
     NativeBatcher,
@@ -219,8 +240,12 @@ from swinwnet_tpu_torch.pipelines import (
     STAGE_NAMES,
     RLInference,
     SwinWNetInference,
+    make_inference_fn,
+    make_rl_inference_fn,
     make_segmentation_fn,
+    make_split_inference_fn,
     make_sr_fn,
+    rl_inference_stages,
 )
 from swinwnet_tpu_torch.train import (
     AdamW,
@@ -228,11 +253,17 @@ from swinwnet_tpu_torch.train import (
     RLTrainer,
     SegmentatorTrainer,
     SwinWNetTrainingPipeline,
+    TrainState,
     UpscalerTrainer,
     combined_loss,
+    make_stage1_step,
+    make_stage2_step,
+    make_stage3_steps,
     masked_adamw,
     rl_step,
     smooth_l1_loss,
+    smooth_l1_ssim_loss,
+    warmup_cosine_schedule,
 )
 from swinwnet_tpu_torch.train import rl as rl_mod
 from swinwnet_tpu_torch.train.trainers import compute_dtype_of, stage3_odd_loss
@@ -438,13 +469,15 @@ def block_cost(C, nH, Wt, dtype, masked):
 @contextlib.contextmanager
 def plain_blocks():
     """Route the differentiable block's three entries to their plain
-    versions on the card, for comparison."""
+    versions on the card, for comparison; the programs (core.graphs) run
+    eagerly meanwhile, since a graph keeps the entries it captured."""
     orig = (sb.fused_swin_block_cst, sb.fused_swin_block, sb.fused_swin_block_wide)
     sb.fused_swin_block_cst = sb.swin_block_plain
     sb.fused_swin_block = sb.swin_block_rowmajor_plain
     sb.fused_swin_block_wide = sb.swin_block_wide_plain
     try:
-        yield
+        with graphs.run_eagerly():
+            yield
     finally:
         sb.fused_swin_block_cst, sb.fused_swin_block, sb.fused_swin_block_wide = orig
 
@@ -771,9 +804,10 @@ def serve(dtype, batch, n_calls, rng, profile=False, **model_kw):
 PROFILES = {}  # what -> (wall ms, device-busy ms) of profile_call
 
 
-def profile_call(fn, what):
+def profile_call(fn, what, quiet=False):
     """Device time by kernel over one call of `fn` (torch.profiler), and the
-    share of its wall time the device was busy (kept in PROFILES)."""
+    share of its wall time the device was busy (kept in PROFILES); `quiet`
+    prints the summary line alone."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
@@ -792,7 +826,7 @@ def profile_call(fn, what):
           f"({100 * busy / wall_ms:.1f}%), {len(rows)} kernel kinds; the Swin-block kernels "
           f"{sum(r[1] for r in fused):.1f} ms in {sum(r[2] for r in fused)} launches, "
           f"{100 * sum(r[1] for r in fused) / max(busy, 1e-9):.1f}% of the device time")
-    for key, ms, count in rows[:12]:
+    for key, ms, count in rows[:0 if quiet else 12]:
         print(f"    {ms:8.3f} ms {100 * ms / max(busy, 1e-9):5.1f}%  x{count:<4d} {key[:90]}")
 
 
@@ -1085,6 +1119,7 @@ def train_main_path(rng):
 
     batch = loader.batches[1]
     trainer = FullModelTrainer(model, [batch], num_epochs=1, warmup_epochs=1, verbose=False)
+    trainer.train_step(*batch, even=False)  # captures the step's graph: the profile is of a replay
     profile_call(lambda: trainer.train_step(*batch, even=False), f"one stage-3 odd step, B={TRAIN_B}, fp32")
     del model, trainer
     return records, total
@@ -1319,7 +1354,8 @@ def rl_serve(rng, n_calls=3):
     call = sb._kernel_call
     sb._kernel_call = lambda layout, nH, x, mask, *w: call(layout, nH, x, None if layout == "cmajor" else mask, *w)
     try:
-        infer(requests[0])
+        with graphs.run_eagerly():  # the graph keeps the masked calls it captured
+            infer(requests[0])
         torch.cuda.synchronize()
     finally:
         sb._kernel_call = call
@@ -1685,7 +1721,8 @@ def split_serve(rng, n_calls=3):
     model = build_model(bf16)
     single, split = SwinWNetInference(model), SwinWNetInference(model, split=True)
     requests = [rng.uniform(0, 1e3, (B, 2, H, W)).astype(np.float32) for _ in range(n_calls)]
-    split(requests[0])  # warm-up
+    split(requests[0])  # warm-up: captures the programs' graphs
+    single(requests[0])
     torch.cuda.synchronize()
     sb.reset_counts()
     per_call, split_ms = [], []
@@ -1819,8 +1856,9 @@ def check_harness(rng):
     bf16 = torch.bfloat16
     calc = MetricsCalculator(build_model(bf16), loader, verbose=False, policy=rl_policy(), norm_convention="notebook")
     sb.reset_counts()
-    res, ms16 = run_harness(calc)
+    res, _ = run_harness(calc)
     total16 = launches()
+    _, ms16 = run_harness(calc)  # timed once the first batch's shape is captured
     per_batch = add(expected_launches("serve", B, bf16, False, "cmajor"),
                     *[expected_launches("stage2", B, bf16, False, "cmajor")] * 2)
     want = [n * len(loader) for n in per_batch]
@@ -1848,7 +1886,7 @@ def check_harness(rng):
           + ", ".join(f"{m[9:]} {t:.1f}" for m, t in per_sample.items()) + f" {'ok' if ok else 'FAIL'}")
     if not ok:
         raise SystemExit("harness bf16: incomplete schema, a value not finite, the JSON round trip, or launches")
-    return per_sample, add(total, total16)
+    return per_sample, add(total, launches())  # both bf16 runs
 
 
 # ---------------------------------------------------------------------------
@@ -2530,7 +2568,7 @@ def read_json(path):
 
 class StepProbe:
     """Wraps the three supervised trainers' and RLTrainer's `train_step` and
-    the serving stages the harness and the diagnostics call: each call's
+    the serving programs the harness and the diagnostics make: each call's
     host ms after a synchronize, launches per kernel, batch, peak memory
     and a step's loss. Keeps the first batch of each kind of step."""
 
@@ -2555,7 +2593,7 @@ class StepProbe:
         trainers = {SegmentatorTrainer: "stage1", UpscalerTrainer: "stage2", FullModelTrainer: "stage3",
                     RLTrainer: "rl"}
         saved = [(cls, "train_step", cls.train_step) for cls in trainers]
-        saved += [(mod, "inference_stages", mod.inference_stages) for mod in (harness_mod, qr_mod)]
+        saved += [(mod, "make_inference_fn", mod.make_inference_fn) for mod in (harness_mod, qr_mod)]
         for cls, kind in trainers.items():
             def step(self, *a, _orig=cls.train_step, _kind=kind, **kw):
                 kind = _kind if _kind != "stage3" else ("stage3_even" if kw["even"] else "stage3_odd")
@@ -2567,11 +2605,15 @@ class StepProbe:
                 return out
             cls.train_step = step
         for mod in (harness_mod, qr_mod):
-            def stages(model, images, _orig=mod.inference_stages):
-                out, ms, n, _ = probe._measure(_orig, model, images)
-                probe.serving.append((ms, n, len(images), model.dtype))
-                return out
-            mod.inference_stages = stages
+            def make_fn(model, _orig=mod.make_inference_fn, **kw):
+                program = _orig(model, **kw)
+
+                def stages(images):
+                    out, ms, n, _ = probe._measure(program, images)
+                    probe.serving.append((ms, n, len(images), model.dtype))
+                    return out
+                return stages
+            mod.make_inference_fn = make_fn
         try:
             yield self
         finally:
@@ -2916,6 +2958,286 @@ def time_new_levels(kernel, dtype, batch, levels, gen):
     return tot
 
 
+# ---------------------------------------------------------------------------
+# [22] The compiled programs
+# ---------------------------------------------------------------------------
+
+PROGRAM_CALLS = 10  # calls or steps of each route timed, their median reported
+# the training comparisons' schedule: two steps an epoch, two warm-up
+# epochs, so the learning rate doubles between steps 2 and 3
+PROGRAM_SCHEDULE = dict(base_lr=1e-3, warmup_epochs=2, num_epochs=4, steps_per_epoch=2)
+PROGRAM_STEPS = 4
+PROGRAM_TIMES = []  # (what, program ms, eager ms, program busy %, eager busy %)
+PROGRAM_BITS = {}  # check -> whether every comparison in it had the same bits
+
+
+def hold_stages(tag, got, want, dtype):
+    """`got` against `want` stage by stage: the same bits, or (where cuBLAS
+    took another algorithm under capture) PIPE_TOL of each stage's scale
+    (1 for probabilities and alpha, else max|want|). Returns whether every
+    stage had the same bits."""
+    differ = [k for k in want if not torch.equal(got[k], want[k])]
+    tol_max, tol_mean = PIPE_TOL[dtype]
+    for k in differ:
+        a, b = got[k].float(), want[k].float()
+        scale = 1.0 if k.startswith("seg") or k == "alpha" else max(b.abs().max().item(), 1e-30)
+        err, mean = (a - b).abs().max().item(), (a - b).abs().mean().item()
+        ok = bool(torch.isfinite(a).all()) and err <= tol_max * scale and mean <= tol_mean * scale
+        print(f"    {tag} {k}: not the same bits, max_abs={err:.3e} (tol {tol_max * scale:.3e}) mean_abs={mean:.3e} "
+              f"(tol {tol_mean * scale:.3e}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"[22] {tag}: the program's {k} disagrees with the eager pipeline")
+    return not differ
+
+
+def eagerly(fn):
+    """`fn` with every program in it run eagerly."""
+    def call(*args):
+        with graphs.run_eagerly():
+            return fn(*args)
+    return call
+
+
+def median_ms(fn, n=PROGRAM_CALLS):
+    ts = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(ts))
+
+
+def time_routes(what, program, eager):
+    """The median host ms of `program()` and `eager()` over PROGRAM_CALLS
+    calls each, and each one's device-busy share over one profiled call."""
+    program()  # a signature not captured yet captures here, outside the timed calls
+    eager()
+    p_ms, e_ms = median_ms(program), median_ms(eager)
+    busy = []
+    for fn, route in ((program, "program"), (eager, "eager")):
+        profile_call(fn, f"{what}, {route}", quiet=True)
+        wall, dev = PROFILES[f"{what}, {route}"]
+        busy.append(100 * dev / wall)
+    PROGRAM_TIMES.append((what, p_ms, e_ms, *busy))
+
+
+def serving_program(tag, dtype, fn, eager, n_signatures, want, rng, other_state, model, names=STAGE_NAMES):
+    """A serving program `fn` against `eager` (the same pipeline, the same
+    model, run eagerly): its replays give the eager result of their input
+    (the same bits, else PIPE_TOL), launch `want` a replay, leave an earlier
+    call's tensors as they were; a new batch size captures a new graph;
+    `load_state_dict(other_state)` changes the weights with no new graph and
+    a replaced Parameter with one. Returns the launches of the run."""
+    draw = lambda b: torch.from_numpy(rng.uniform(0, 1e3, (b, 2, H, W)).astype(np.float32)).cuda()
+    x1, x2 = draw(B), draw(B)
+    take = lambda d: {k: d[k].detach().clone() for k in names}
+    start, bits = launches(), []
+    e1 = take(eager(x1))
+    bits.append(hold_stages(f"{tag} first call", fn(x1), e1, dtype))
+    before = launches()
+    out1 = fn(x1)
+    torch.cuda.synchronize()
+    n = [b - a for a, b in zip(before, launches())]
+    bits.append(hold_stages(f"{tag} replay", out1, e1, dtype))
+    kept = take(out1)
+    bits.append(hold_stages(f"{tag} another input", fn(x2), take(eager(x2)), dtype))
+    intact = all(torch.equal(out1[k], kept[k]) for k in names)
+    graphs = [n_signatures()]
+    fn(x1[:1])
+    bits.append(hold_stages(f"{tag} B=1", fn(x1[:1]), take(eager(x1[:1])), dtype))
+    graphs.append(n_signatures())
+    model.load_state_dict(other_state)
+    out_w = fn(x1)
+    graphs.append(n_signatures())
+    e_w = take(eager(x1))
+    moved = not torch.equal(e_w[names[-1]], e1[names[-1]])
+    bits.append(hold_stages(f"{tag} other weights", out_w, e_w, dtype))
+    proj = model.patch_embed.proj
+    proj.weight = torch.nn.Parameter(proj.weight.detach() * 1.5)
+    bits.append(hold_stages(f"{tag} a replaced Parameter", fn(x1), take(eager(x1)), dtype))
+    graphs.append(n_signatures())
+    ok = n == want and intact and moved and graphs == [1, 2, 2, 3]
+    PROGRAM_BITS[tag] = all(bits)
+    print(f"  {tag}: launches a replay {n} (gate: {want}); replays against eager: "
+          f"{'the same bits' if all(bits) else 'within PIPE_TOL, not all the same bits'}; the first call's tensors "
+          f"intact after the second: {intact}; signatures captured after B={B}, B=1, load_state_dict, a replaced "
+          f"Parameter: {graphs} (want [1, 2, 2, 3]); the other weights moved the output: {moved} "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"[22] {tag}: a check of the program failed")
+    return [b - a for a, b in zip(start, launches())]
+
+
+def serving_programs(rng):
+    """[22]'s serving checks; returns the launches."""
+    from swinwnet_tpu_torch.pipelines.split import inference_stages
+
+    total = [0, 0, 0]
+    for tag, dtype, kw in (("serving bf16", torch.bfloat16, {}), ("serving fp32", torch.float32, {}),
+                           ("serving bf16 nmajor", torch.bfloat16, {"fused_layout": "nmajor"})):
+        model = build_model(dtype, **kw).eval()
+        fn = make_inference_fn(model)
+        eager = lambda x, m=model: inference_stages(m, x)
+        want = expected_launches("serve", B, dtype, False, kw.get("fused_layout", "cmajor"))
+        other = build_model(dtype, seed=SEED + 11, **kw).state_dict()
+        total = add(total, serving_program(tag, dtype, fn, eager, lambda: fn.num_graphs, want, rng, other, model))
+        x = torch.from_numpy(rng.uniform(0, 1e3, (B, 2, H, W)).astype(np.float32)).cuda()
+        for b in ((B, 1) if dtype == torch.bfloat16 and not kw else (B,)):
+            time_routes(f"{tag} B={b}", lambda: fn(x[:b]), lambda: eager(x[:b]))
+        del model, fn, other
+
+    # the split route: its three programs against eager, and against the single route bit for bit
+    model = build_model(torch.bfloat16).eval()
+    split = make_split_inference_fn(model)
+    n_sig = lambda: max(p.num_graphs for p in (split.stage_a, split.stage_b, split.stage_c))
+    want = expected_launches("serve", B, torch.bfloat16, False, "cmajor")
+    other = build_model(torch.bfloat16, seed=SEED + 11).state_dict()
+    total = add(total, serving_program("split bf16", torch.bfloat16, split, lambda x, m=model: inference_stages(m, x),
+                                       n_sig, want, rng, other, model))
+    x = torch.from_numpy(rng.uniform(0, 1e3, (B, 2, H, W)).astype(np.float32)).cuda()
+    single = make_inference_fn(model)
+    n0 = launches()
+    got, want_stages = split(x), single(x)
+    got, want_stages = split(x), single(x)
+    same = [k for k in STAGE_NAMES if torch.equal(got[k], want_stages[k])]
+    seg_only = torch.equal(split.stage_a(x)[1], want_stages["seg_map_lr"])
+    print(f"  split route: the three programs' replays equal the single program's bit for bit in "
+          f"{len(same)}/{len(STAGE_NAMES)} stages; stage_a alone gives seg_map_lr bit for bit: {seg_only} "
+          f"{'ok' if len(same) == len(STAGE_NAMES) and seg_only else 'FAIL'}")
+    if len(same) < len(STAGE_NAMES) or not seg_only:
+        raise SystemExit("[22] the split programs do not equal the single program bit for bit")
+    total = add(total, [b - a for a, b in zip(n0, launches())])
+    time_routes(f"split bf16 B={B}", lambda: split(x), lambda: inference_stages(model, x))
+    del model, split, single, other, got, want_stages
+
+    # RL serving
+    model, policy = build_model(torch.bfloat16).eval(), rl_policy()
+    fn = make_rl_inference_fn(model, policy)
+    eager = lambda x: rl_inference_stages(model, policy, x)
+    other = build_model(torch.bfloat16, seed=SEED + 11).state_dict()
+    total = add(total, serving_program("RL serving bf16", torch.bfloat16, fn, eager, lambda: fn.num_graphs, want,
+                                       rng, other, model, names=STAGE_NAMES + ("alpha",)))
+    x = torch.from_numpy(rng.uniform(0, 1e3, (B, 2, H, W)).astype(np.float32)).cuda()
+    time_routes(f"RL serving bf16 B={B}", lambda: fn(x), lambda: eager(x))
+    del model, policy, fn, other
+    return total
+
+
+def step_of(kind, model, tx, compute_dtype, sr_loss):
+    """The factories' step of `kind`; returns (step, how to read its loss)."""
+    if kind == "stage1":
+        return make_stage1_step(model, tx, combined_loss, compute_dtype), lambda out: out
+    if kind == "stage2":
+        return make_stage2_step(model, tx, sr_loss, compute_dtype), lambda out: out
+    even, odd, _, _ = make_stage3_steps(model, tx, combined_loss, sr_loss, compute_dtype=compute_dtype)
+    return (even if kind == "stage3_even" else odd), lambda out: out["loss"]
+
+
+def program_steps(kind, batches, model_kw, compute_dtype, sr_loss, eager, constant_lr=False):
+    """PROGRAM_STEPS steps of `kind` from the seed's weights on `batches`
+    through the factories (eagerly when `eager`), at PROGRAM_SCHEDULE or
+    held at its epoch-0 rate. Returns (model, state, step, the parameters
+    before, losses, launches per step)."""
+    model = build_model(torch.float32, **model_kw).train()
+    schedule = warmup_cosine_schedule(**PROGRAM_SCHEDULE)
+    lr = (lambda count: schedule(count * 0)) if constant_lr else schedule
+    tx = masked_adamw(model, kind if kind in ("stage1", "stage2") else "stage3", lr)
+    state = TrainState.create(model, tx)
+    step, loss_of = step_of(kind, model, tx, compute_dtype, sr_loss)
+    before, losses, counts = snapshot(model), [], []
+    with graphs.run_eagerly() if eager else contextlib.nullcontext():
+        for images, masks in batches:
+            n0 = launches()
+            state, out = step(state, images, masks)
+            losses.append(float(loss_of(out)))
+            counts.append([b - a for a, b in zip(n0, launches())])
+    return model, state, (lambda *b: step(state, *b)), before, losses, counts
+
+
+def agree(got, want, before):
+    """Leaves after the steps: (the leaves whose bits differ, the worst
+    leaf's |got - want| over its largest change in the steps)."""
+    differ = [k for k in want if not torch.equal(got[k], want[k])]
+    worst = 0.0
+    for k in differ:
+        moved = (want[k] - before[k]).abs().max().item()
+        worst = max(worst, (got[k] - want[k]).abs().max().item() / max(moved, 1e-30))
+    return differ, worst
+
+
+def training_program(kind, dtype, batch, model_kw, rng):
+    """PROGRAM_STEPS captured steps against as many eager ones from the same
+    weights and batches, the learning rate doubling between steps 2 and 3:
+    each step's loss and every leaf after the last (the same bits, else
+    TRAIN_LOSS_RTOL and TRAIN_GRAD_TOL of each leaf's change), frozen leaves
+    the same bits, launches a step; the control, the same captured steps at
+    epoch 0's rate throughout, must agree up to step 3's loss and fail
+    after. Returns the launches."""
+    compute_dtype = None if dtype == torch.float32 else "bfloat16"
+    sr_loss = smooth_l1_loss if dtype == torch.float32 else smooth_l1_ssim_loss
+    fused_deep = model_kw.get("fused_deep", False)
+    want = expected_launches(kind, batch, dtype, fused_deep, "cmajor")
+    batches = [(torch.from_numpy(i).cuda(), torch.from_numpy(m).cuda())
+               for i, m in training_batches(PROGRAM_STEPS, batch, rng)]
+    start = launches()
+    eager_model, _, eager_step, before, e_losses, _ = program_steps(kind, batches, model_kw, compute_dtype, sr_loss,
+                                                                    eager=True)
+    e_after = snapshot(eager_model)
+    model, state, step, before_p, p_losses, counts = program_steps(kind, batches, model_kw, compute_dtype, sr_loss,
+                                                                   eager=False)
+    after = snapshot(model)
+    close = lambda a, b: a == b or abs(a - b) <= TRAIN_LOSS_RTOL * abs(b)
+    differ, worst = agree(after, e_after, before)
+    stage = kind if kind in ("stage1", "stage2") else "stage3"
+    frozen = [k for k in before if not STAGE_TRAINS[stage](k.split(".")[0])]
+    frozen_same = all(torch.equal(after[k], before[k]) for k in frozen)
+    same_losses = p_losses == e_losses
+    ok = (all(map(close, p_losses, e_losses)) and worst <= TRAIN_GRAD_TOL and frozen_same
+          and all(n == want for n in counts) and all(torch.equal(before_p[k], before[k]) for k in before))
+    bits = same_losses and not differ
+    PROGRAM_BITS[f"{kind} {str(dtype)[6:]}"] = bits
+    tag = f"{kind:11s} {str(dtype)[6:]:8s} B={batch}"
+    print(f"  {tag}: losses captured {[f'{v:.7g}' for v in p_losses]} eager {[f'{v:.7g}' for v in e_losses]}; "
+          f"after {PROGRAM_STEPS} steps {len(after) - len(differ)}/{len(after)} leaves the same bits"
+          + (f" (worst {worst:.2e} of its change, tol {TRAIN_GRAD_TOL:.0e})" if differ else "")
+          + f"; {len(frozen)} frozen leaves the same bits: {frozen_same}; launches a step {counts} (gate: {want}) "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"[22] {kind} {dtype}: the captured steps disagree with the eager steps")
+    time_routes(f"{kind} step {str(dtype)[6:]} B={batch}", lambda: step(*batches[0]),
+                eagerly(lambda: eager_step(*batches[0])))
+    del model, state, step, eager_model, eager_step
+
+    c_model, _, _, _, c_losses, _ = program_steps(kind, batches, model_kw, compute_dtype, sr_loss, eager=False,
+                                                  constant_lr=True)
+    c_differ, c_worst = agree(snapshot(c_model), e_after, before)
+    held = all(map(close, c_losses[:3], e_losses[:3]))
+    caught = not close(c_losses[3], e_losses[3]) or c_worst > TRAIN_GRAD_TOL
+    print(f"    control, the rate held at epoch 0's: losses {[f'{v:.7g}' for v in c_losses]}; steps 1-3 agree: "
+          f"{held}; step 4's loss or the leaves fail the comparison: {caught} (worst leaf {c_worst:.2e} of its "
+          f"change) {'ok' if held and caught else 'FAIL'}")
+    if not (held and caught):
+        raise SystemExit(f"[22] {kind} {dtype}: the control with a stale learning rate was not caught")
+    del c_model
+    torch.cuda.empty_cache()
+    return [b - a for a, b in zip(start, launches())]
+
+
+def programs_phase(rng):
+    """[22]: serving and training through the programs at the published
+    width and full geometry. Returns the launches of the phase."""
+    total = serving_programs(rng)
+    for kind in ("stage1", "stage2", "stage3_even", "stage3_odd"):
+        total = add(total, training_program(kind, torch.float32, TRAIN_B, {"fused_deep": True}, rng))
+    for kind in ("stage1", "stage2", "stage3_even", "stage3_odd"):
+        total = add(total, training_program(kind, torch.bfloat16, RECIPE_B, {"remat": True, "attn_chunk": 8192},
+                                            rng))
+    print("  the same bits as eager in: " + ", ".join(f"{k} {v}" for k, v in PROGRAM_BITS.items()))
+    return total
+
+
 def kernel_record(name, replaces, n_launches, max_abs_err, tot, dtype):
     bound_ops, bound_bytes = tot["flops"] / PEAK_OPS[dtype] * 1e3, tot["bytes"] / HBM_BPS * 1e3
     return {
@@ -3127,6 +3449,16 @@ def main() -> int:
     before = launches()
     bench_phase()
     main_path = add(main_path, [b - a for a, b in zip(before, launches())])
+    print(f"[22] the compiled programs: serving ({B} and 1 images) and training steps (fp32 B={TRAIN_B} fused_deep, "
+          f"bf16 B={RECIPE_B} remat) replaying CUDA graphs, against the same pipelines and steps run eagerly")
+    t22 = time.perf_counter()
+    main_path = add(main_path, programs_phase(rng))
+    print(f"  phase [22] {time.perf_counter() - t22:.0f} s")
+    print(f"[22] times on {smi}: ms a call or step, host clock, median of {PROGRAM_CALLS}; device busy over one "
+          f"profiled call")
+    for what, p_ms, e_ms, p_busy, e_busy in PROGRAM_TIMES:
+        print(f"  {what}: program {p_ms:.2f} ms (busy {p_busy:.1f}%), eager {e_ms:.2f} ms (busy {e_busy:.1f}%), "
+              f"{e_ms / p_ms:.2f}x")
     print(f"  whole script {time.perf_counter() - t_start:.0f} s")
 
     print(json.dumps({"kernels": [

@@ -5,9 +5,11 @@ maps, PSNR/SSIM on the SR output (summary / diffraction-only / error-only
 channels), and d-space physical metrics (HR 1241-bin grid for predictions
 vs LR 832-bin grid for targets).
 
-Each batch runs on the model's device: the 8-stage pipeline or the SR
-branch, every per-sample score of the batch computed there at once and
-brought to the host in one copy. The physics rebins the device tensors on
+Each batch runs on the model's device: the 8-stage pipeline (through
+`make_inference_fn`, a CUDA graph per batch shape on the card, as the JAX
+harness jit-compiles it) or the SR branch, every per-sample score of the
+batch computed there at once and brought to the host in one copy. The
+physics rebins the device tensors on
 the device (`physics.DiffractionMetricsCalculator`); its peak finding and
 matching are the published host specification. Results come back as plain
 python structures, writable in the published `results/*.json` schema
@@ -33,7 +35,7 @@ from ..ops.norms import (
 )
 from ..ops.resize import bilinear_downscale_half, nearest_exact_resize
 from ..physics import DiffractionMetricsCalculator, d_centers_hr, d_centers_lr
-from ..pipelines.inference import inference_stages
+from ..pipelines.inference import make_inference_fn
 from .image_metrics import METRIC_NAMES, psnr_per_sample, segmentation_metrics_batch, ssim_per_sample
 
 THRESHOLDS = (0.25, 0.5, 0.75)
@@ -106,6 +108,7 @@ class MetricsCalculator:
         self.verbose = verbose
         self.policy = None if policy is None else policy.eval()
         self.device = next(model.parameters()).device
+        self._infer = make_inference_fn(model)
 
         self.d_centers_lr = d_centers_lr
         self.d_centers_hr = d_centers_hr
@@ -145,7 +148,7 @@ class MetricsCalculator:
         for images, masks in self.val_loader:
             masks = self._on_device(masks)
             masks = masks[:, None] if masks.ndim == 3 else masks
-            stages = inference_stages(self.model, self._on_device(images))
+            stages = self._infer(self._on_device(images))
             masks_up = nearest_exact_resize(masks, masks.shape[-2] * 2, masks.shape[-1] * 2)
             # [res, threshold, metric, sample], one copy to the host
             scores = torch.stack([

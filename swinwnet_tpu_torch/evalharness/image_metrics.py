@@ -82,19 +82,23 @@ def psnr(pred: torch.Tensor, target: torch.Tensor, data_range: float = 1.0) -> t
     return psnr_per_sample(pred.reshape(1, -1), target.reshape(1, -1), data_range)[0]
 
 
-@functools.lru_cache(maxsize=4)
-def _gaussian_kernel(kernel_size: int, sigma: float) -> np.ndarray:
+@functools.lru_cache(maxsize=8)
+def _gaussian_kernel(kernel_size: int, sigma: float, device: str) -> torch.Tensor:
+    """The [1, 1, k, k] fp32 blur on `device`, kept for later calls (a CUDA
+    graph cannot copy it to the card while it captures) and built outside
+    inference mode, so that a training step may save it for its backward."""
     coords = np.arange(kernel_size, dtype=np.float64) - (kernel_size - 1) / 2.0
     g = np.exp(-(coords ** 2) / (2 * sigma ** 2))
     g /= g.sum()
-    return np.outer(g, g).astype(np.float32)
+    with torch.inference_mode(False):
+        return torch.from_numpy(np.outer(g, g).astype(np.float32)).to(device)[None, None]
 
 
 def _ssim_map(pred, target, data_range, kernel_size, sigma, k1, k2) -> torch.Tensor:
     """The [B, C, h, w] SSIM map over the VALID region."""
     pred, target = torch.broadcast_tensors(pred.float(), target.float())
     B, C, H, W = pred.shape
-    kern = torch.from_numpy(_gaussian_kernel(kernel_size, sigma)).to(pred.device)[None, None]
+    kern = _gaussian_kernel(kernel_size, sigma, str(pred.device))
     # the five local means as one depthwise VALID convolution with the shared kernel
     maps = torch.stack([pred, target, pred * pred, target * target, pred * target])
     with full_fp32():

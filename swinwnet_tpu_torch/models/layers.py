@@ -83,6 +83,14 @@ def conv2d(x: torch.Tensor, conv: nn.Conv2d, dtype: torch.dtype, **kw) -> torch.
         return det_conv2d(x.to(dtype), conv.weight.to(dtype), conv.bias.to(dtype), **kw)
 
 
+def _refuse_capture(what: str) -> None:
+    """A CUDA graph would replay the random draws it captured on every
+    call: a forward that draws dropout is not captured."""
+    if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(f"{what} draws random numbers, which a CUDA graph would replay unchanged: run a "
+                           "forward with deterministic=False eagerly (core.graphs.run_eagerly), not captured")
+
+
 def dropout(x: torch.Tensor, rate: float, deterministic: bool,
             generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """flax's `nn.Dropout`: unless `deterministic` or `rate` is 0, keep each
@@ -93,6 +101,7 @@ def dropout(x: torch.Tensor, rate: float, deterministic: bool,
         return x
     if rate >= 1.0:
         return torch.zeros_like(x)
+    _refuse_capture("dropout")
     keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
@@ -312,6 +321,7 @@ class SwinTransformerBlock(nn.Module):
 def _block_seed(generator: Optional[torch.Generator]) -> int:
     """A seed for one block's dropout, drawn from `generator` (None: the
     default CPU generator)."""
+    _refuse_capture("a block's dropout")
     dev = "cpu" if generator is None else generator.device
     return int(torch.randint(0, 2 ** 62, (), generator=generator, device=dev))
 
@@ -431,13 +441,17 @@ class BasicLayer(nn.Module):
     def _run_blocks(self, x: torch.Tensor, pad_mask: Optional[torch.Tensor], deterministic: bool,
                     generator: Optional[torch.Generator]) -> torch.Tensor:
         """The unfused blocks, each checkpointed under `remat` when autograd
-        records; a block that drops gets its own seed from `generator`."""
+        records; a block that drops gets its own seed from `generator`. Its
+        dropout draws only from that block's own generator, so `checkpoint`
+        has no default generator's state to keep: it reads none, which a
+        CUDA-graph capture would refuse."""
         draws = not deterministic and self.has_dropout
         remat = self.remat and torch.is_grad_enabled()
         for blk in self.blocks:
             seed = _block_seed(generator) if draws else None
             if remat:
-                x = checkpoint(_run_block, blk, x, pad_mask, deterministic, seed, use_reentrant=False)
+                x = checkpoint(_run_block, blk, x, pad_mask, deterministic, seed, use_reentrant=False,
+                               preserve_rng_state=False)
             else:
                 x = _run_block(blk, x, pad_mask, deterministic, seed)
         return x

@@ -20,7 +20,11 @@ is), so no caller copies or relays out an operand.
 On a CUDA tensor a wrapper launches the hand-written kernel in
 `csrc/swin_block.cu` (built with nvcc on first use, loaded with ctypes) or
 raises; on a CPU tensor it runs its plain version. It returns a new tensor
-in x's layout and does not write x.
+in x's layout and does not write x. Every CUDA call a launch makes
+(cudaFuncSetAttribute, the device's SM count, the occupancy calculator,
+the launch) is allowed under CUDA-graph capture, so a program of
+`core.graphs` captures it, and adds the launches it captured to `launches`
+on every replay.
 
 `fused_block_autodiff` is the entry point the models call: the forward is
 the kernel of the layout, the backward differentiates `swin_block_reference`
@@ -42,6 +46,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core.device import full_fp32
+from ..core.graphs import count_launches_of
 
 WINDOW_TOKENS = 25
 
@@ -526,6 +531,7 @@ def fused_swin_block_wide(
 
 
 KERNELS = (fused_swin_block_cst, fused_swin_block, fused_swin_block_wide)
+count_launches_of(*KERNELS)
 
 
 def reset_counts() -> None:

@@ -4,17 +4,20 @@ alpha policy's deterministic gain on the SR output.
 
 Stage order (reference :95-145): ensure_2ch -> segment_1 -> mask ->
 normalize -> policy(mu) -> upscale -> apply_action -> denormalize ->
-segment_2 -> mask, run eagerly on the model's device; `alpha` is an extra
-stage.
+segment_2 -> mask, on the model's device; `alpha` is an extra stage.
+`make_rl_inference_fn` makes it one program (`core.graphs`: a CUDA graph
+per input shape on the card), and `RLInference` calls through it.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Dict
 
 import numpy as np
 import torch
 
+from ..core.graphs import Program
 from ..models.alpha_policy import AlphaPolicy, apply_action
 from ..models.swin_wnet import SwinWNet
 from ..ops.norms import denormalize_piecewise, ensure_2ch, normalize_piecewise
@@ -51,6 +54,12 @@ def rl_inference_stages(model: SwinWNet, policy: AlphaPolicy, images: torch.Tens
     }
 
 
+def make_rl_inference_fn(model: SwinWNet, policy: AlphaPolicy) -> Program:
+    """`fn(images) -> stages dict` (with `alpha`): `rl_inference_stages` as
+    one program over both modules' weights."""
+    return Program(functools.partial(rl_inference_stages, model, policy), modules=(model, policy))
+
+
 class RLInference:
     """`SwinWNetInference`'s attribute API plus `alpha`: call with a batch
     (numpy or tensor, fp32 on the model's device), read the stages. Returns
@@ -60,6 +69,7 @@ class RLInference:
         self.model = model.eval()
         self.policy = policy.eval()
         self.device = next(model.parameters()).device
+        self._fn = make_rl_inference_fn(model, policy)
         self._reset_outputs()
 
     def _reset_outputs(self):
@@ -71,6 +81,6 @@ class RLInference:
         if isinstance(images, np.ndarray):
             images = torch.from_numpy(images)
         images = images.to(device=self.device, dtype=torch.float32)
-        for name, value in rl_inference_stages(self.model, self.policy, images).items():
+        for name, value in self._fn(images).items():
             setattr(self, name, value)
         return self.images_masked_hr

@@ -4,10 +4,11 @@
 The JAX package compiles segment_1, upscale and segment_2 as three
 executables chained by a thin Python function, to cut peak compile memory,
 and so that a partial pipeline (segmentation-only serving is `stage_a`
-alone) reuses them. Eager PyTorch compiles nothing, so here the stages are
-plain functions, and the 8-stage `inference_stages` is their composition:
-the split route and the single route run the same operations and give the
-same stage tensors, bit for bit.
+alone) reuses them. Here the stages are plain functions, and the 8-stage
+`inference_stages` is their composition; `make_split_inference_fn` makes
+each stage a program (`core.graphs`: a CUDA graph on the card) and chains
+the three. The split route and the single route run the same operations and
+give the same stage tensors, bit for bit.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from typing import Dict
 
 import torch
 
+from ..core.graphs import Program
 from ..models.swin_wnet import SwinWNet
 from ..ops.norms import denormalize_piecewise, ensure_2ch, normalize_piecewise
 
@@ -68,10 +70,26 @@ def inference_stages(model: SwinWNet, images: torch.Tensor) -> Dict[str, torch.T
 
 def make_split_inference_fn(model: SwinWNet):
     """`fn(images) -> stages dict` for a [B, 1|2, H, W] batch on the model's
-    device, with the stages bound to `model` as `fn.stage_a`, `fn.stage_b`
-    and `fn.stage_c`."""
-    fn = functools.partial(inference_stages, model)
-    fn.stage_a = functools.partial(stage_a, model)
-    fn.stage_b = functools.partial(stage_b, model)
-    fn.stage_c = functools.partial(stage_c, model)
+    device, three programs chained: `fn.stage_a(images)`,
+    `fn.stage_b(norm, params_norm, skips_seg)` and
+    `fn.stage_c(upscaled_denorm, skips_sr)`, each a program of one stage
+    bound to `model` (a CUDA graph per input shape on the card)."""
+    a, b, c = (Program(functools.partial(stage, model), modules=(model,)) for stage in (stage_a, stage_b, stage_c))
+
+    def fn(images: torch.Tensor) -> Dict[str, torch.Tensor]:
+        images, seg_map_lr, images_masked_lr, norm, params_norm, skips_seg = a(images)
+        upscaled_norm, upscaled_denorm, skips_sr = b(norm, params_norm, skips_seg)
+        seg_map_hr, images_masked_hr = c(upscaled_denorm, skips_sr)
+        return {
+            "images": images,
+            "seg_map_lr": seg_map_lr,
+            "images_masked_lr": images_masked_lr,
+            "norm": norm,
+            "upscaled_norm": upscaled_norm,
+            "upscaled_denorm": upscaled_denorm,
+            "seg_map_hr": seg_map_hr,
+            "images_masked_hr": images_masked_hr,
+        }
+
+    fn.stage_a, fn.stage_b, fn.stage_c = a, b, c
     return fn

@@ -23,6 +23,12 @@ batch sizes, dtypes and routes:
 * full_b64_bf16_mesh  (`--mesh` or SWINWNET_BENCH_MESH=1) the headline over
   every card, one rank a card through `parallel`, batch 64 a card
 
+The serving records run the pipelines' programs (`make_inference_fn`,
+`make_rl_inference_fn`: a CUDA graph per shape, replayed) and the training
+records the step factories' (`TrainState`, `make_stage1_step`,
+`make_stage3_steps`), as bench.py runs the jitted functions; the baseline
+`make_segmentation_fn` runs eagerly.
+
 Each record is a loop sized from a 2-iteration probe to
 SWINWNET_BENCH_TARGET_S seconds of steady state (30 by default);
 SWINWNET_BENCH_CONFIGS (comma-separated names) picks records. Serving calls
@@ -262,13 +268,14 @@ def wnet(dtype: str, fused_blocks: bool, device, remat: bool = False):
 
 
 def serving_record(name, batch, dtype, fused_blocks, x, target_s, device):
-    from ..pipelines.split import inference_stages
+    from ..pipelines.inference import inference_stages, make_inference_fn
 
     model = wnet(dtype, fused_blocks, device).eval()
-    fn = lambda images: inference_stages(model, images)["images_masked_hr"]
+    infer = make_inference_fn(model)
     xd = torch.from_numpy(x).to(device)
-    gflops = gflops_per_image(model, fn, xd)
-    ips, iters, dt, launches = time_serving(chained(fn), xd, batch, target_s)
+    gflops = gflops_per_image(model, lambda images: inference_stages(model, images)["images_masked_hr"], xd)
+    ips, iters, dt, launches = time_serving(chained(lambda images: infer(images)["images_masked_hr"]), xd, batch,
+                                            target_s)
     peak, source = PEAK_FLOPS[dtype]
     rec = {"name": name, "kind": "serving_full_pipeline", "batch": batch, "dtype": dtype,
            "fused_blocks": fused_blocks, "images_per_sec": ips, "iters": iters, "steady_state_s": dt,
@@ -302,11 +309,12 @@ def seg_only_record(x, target_s, device):
 
 def rl_record(x, target_s, device):
     from ..models import AlphaPolicy
-    from ..pipelines.rl_inference import rl_inference_stages
+    from ..pipelines.rl_inference import make_rl_inference_fn
 
     model = wnet("bfloat16", True, device).eval()
     policy = AlphaPolicy(device=device, generator=torch.Generator().manual_seed(1)).eval()
-    fn = lambda images: rl_inference_stages(model, policy, images)["images_masked_hr"]
+    infer = make_rl_inference_fn(model, policy)
+    fn = lambda images: infer(images)["images_masked_hr"]
     ips, iters, dt, launches = time_serving(chained(fn), torch.from_numpy(x).to(device), len(x), target_s)
     return {"name": "rl_full_b64_bf16", "kind": "serving_config5_rl_pipeline", "batch": len(x),
             "dtype": "bfloat16", "fused_blocks": True, "images_per_sec": ips, "iters": iters,
@@ -315,21 +323,21 @@ def rl_record(x, target_s, device):
 
 def trainer_step(stage: str, dtype: str, device):
     """(model, `step(images, masks) -> loss`): one step of `stage` ("stage1"
-    or "stage3", odd) through the port's trainer on bench.py's training
-    model, with the stage's masked AdamW at a constant 1e-4 as bench.py
+    or "stage3", odd) on bench.py's training model through the step
+    factories, with the stage's masked AdamW at a constant 1e-4 as bench.py
     builds it."""
-    from ..train import FullModelTrainer, SegmentatorTrainer
+    from ..train import TrainState, make_stage1_step, make_stage3_steps
     from ..train.freeze import masked_adamw
+    from ..train.losses import combined_loss, smooth_l1_loss
 
     model = wnet("float32", False, device, remat=True).train()
+    tx = masked_adamw(model, stage, 1e-4)
+    state = TrainState.create(model, tx)
     if stage == "stage1":
-        trainer = SegmentatorTrainer(model, [None], compute_dtype=dtype, verbose=False)
-        step = trainer.train_step
-    else:
-        trainer = FullModelTrainer(model, [None], compute_dtype=dtype, verbose=False)
-        step = lambda images, masks: trainer.train_step(images, masks, even=False)["loss"]
-    trainer.optimizer = masked_adamw(model, trainer.stage, 1e-4)
-    return model, step
+        step1 = make_stage1_step(model, tx, combined_loss, compute_dtype=dtype)
+        return model, lambda images, masks: step1(state, images, masks)[1]
+    odd_step = make_stage3_steps(model, tx, combined_loss, smooth_l1_loss, compute_dtype=dtype)[1]
+    return model, lambda images, masks: odd_step(state, images, masks)[1]["loss"]
 
 
 def training_record(name, kind, stage, dtype, images, masks, target_s, device):
@@ -375,7 +383,7 @@ def _mesh_rank(rank: int, n: int, port: int, target_s: float, out_path: str) -> 
 
     from ..parallel import initialize_multihost, make_mesh, replicate, shard_batch
     from ..parallel.sharding import mesh_device
-    from ..pipelines.split import inference_stages
+    from ..pipelines.inference import make_inference_fn
 
     initialize_multihost(f"localhost:{port}", n, rank, device="cuda")
     try:
@@ -383,7 +391,8 @@ def _mesh_rank(rank: int, n: int, port: int, target_s: float, out_path: str) -> 
         dev = mesh_device(mesh)
         model = replicate(wnet("bfloat16", True, dev), mesh).eval()
         x = shard_batch(np.random.default_rng(0).uniform(0, 1e3, (64 * n, 2, H, W)).astype(np.float32), mesh)
-        step = chained(lambda images: inference_stages(model, images)["images_masked_hr"])
+        infer = make_inference_fn(model)
+        step = chained(lambda images: infer(images)["images_masked_hr"])
         float(step(x).sum())  # warm-up
 
         def run(k):

@@ -54,7 +54,7 @@ from ..data.real import REFERENCE_ROOT, load_real_eval_set, reference_available
 from ..evalharness import MetricsCalculator, write_results_json
 from ..evalharness.regression import compare_with_baseline, load_baseline_arrays
 from ..models.swin_wnet import SwinWNet
-from ..pipelines.inference import inference_stages
+from ..pipelines.inference import make_inference_fn
 from ..train import SwinWNetTrainingPipeline
 from ..utils import latest_checkpoint, load_checkpoint, save_checkpoint
 
@@ -368,7 +368,8 @@ def diagnostics_of(hr_map: np.ndarray, denorm: np.ndarray, eval_images: np.ndarr
 def diagnostics(model: SwinWNet, eval_images: np.ndarray, batch: int) -> Dict:
     """`diagnostics_of` the serving pipeline's stages on the first eval batch."""
     device = next(model.parameters()).device
-    stages = inference_stages(model.eval(), torch.as_tensor(eval_images[:batch, None]).to(device, torch.float32))
+    infer = make_inference_fn(model.eval())
+    stages = infer(torch.as_tensor(eval_images[:batch, None]).to(device, torch.float32))
     host = lambda t: t.float().cpu().numpy()
     return diagnostics_of(host(stages["seg_map_hr"]), host(stages["upscaled_denorm"]), eval_images)
 

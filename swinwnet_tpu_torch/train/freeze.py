@@ -15,7 +15,6 @@ from __future__ import annotations
 
 from typing import Callable, Dict, List, Union
 
-import numpy as np
 import torch
 from torch import nn
 
@@ -47,34 +46,49 @@ class AdamW:
     """AdamW as `optax.adamw` computes it: m and v with bias correction,
     update = -lr * (m_hat / (sqrt(v_hat) + eps) + weight_decay * p), the
     decay decoupled and scaled by the learning rate. `learning_rate` is a
-    float or a step -> float schedule asked with the count of steps taken."""
+    float or a schedule, asked with the count of steps taken.
 
-    def __init__(self, params, learning_rate: Union[float, Callable[[int], float]],
-                 weight_decay: float = 1e-4, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
+    `count` is an int64 tensor on the parameters' device, and a step reads
+    the learning rate (the schedule evaluated on that tensor) and the fp32
+    bias corrections there, with no host sync: a CUDA graph can capture a
+    step, and each replay reads the count it has reached. A schedule is
+    called with the count tensor and returns an fp32 tensor or a float
+    (`warmup_cosine_schedule` does either)."""
+
+    def __init__(self, params, learning_rate: Union[float, Callable], weight_decay: float = 1e-4,
+                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
         self.params = list(params)
         self.learning_rate, self.weight_decay = learning_rate, weight_decay
         self.b1, self.b2, self.eps = b1, b2, eps
-        self.count = 0
+        device = self.params[0].device if self.params else torch.device("cpu")
+        self.count = torch.zeros((), dtype=torch.int64, device=device)
         self.m = [torch.zeros_like(p) for p in self.params]
         self.v = [torch.zeros_like(p) for p in self.params]
 
-    def lr(self) -> float:
+    def lr(self):
+        """The learning rate of the next step: a tensor on the count's
+        device for a schedule, the float for a constant."""
         lr = self.learning_rate
-        return float(lr(self.count)) if callable(lr) else float(lr)
+        return lr(self.count) if callable(lr) else float(lr)
+
+    def tensors(self) -> List[torch.Tensor]:
+        """What a step reads and writes in place besides the parameters and
+        their gradients: the count and both moments."""
+        return [self.count, *self.m, *self.v]
 
     @torch.no_grad()
     def step(self) -> None:
         """One update from the parameters' `.grad` (a missing grad counts as 0)."""
         lr = self.lr()
         self.count += 1
-        # the bias corrections in fp32, as optax takes them: 1 - 0.999**t loses
-        # five digits there, and the parity with the JAX trainers rests on it
-        f32 = np.float32
-        c1 = float(f32(1) - f32(self.b1) ** f32(self.count))
-        c2 = float(f32(1) - f32(self.b2) ** f32(self.count))
         ps, ms, vs = self.params, self.m, self.v
         if not ps:
             return
+        # the bias corrections in fp32, as optax takes them: 1 - 0.999**t loses
+        # five digits there, and the parity with the JAX trainers rests on it
+        t = self.count.float()
+        c1 = 1.0 - torch.pow(self.b1, t)
+        c2 = 1.0 - torch.pow(self.b2, t)
         gs = [p.grad if p.grad is not None else torch.zeros_like(p) for p in ps]
         torch._foreach_mul_(ms, self.b1)
         torch._foreach_add_(ms, gs, alpha=1.0 - self.b1)
@@ -86,17 +100,27 @@ class AdamW:
         upd = torch._foreach_div(ms, c1)
         torch._foreach_div_(upd, denom)
         torch._foreach_add_(upd, ps, alpha=self.weight_decay)
-        torch._foreach_add_(ps, upd, alpha=-lr)
+        if isinstance(lr, torch.Tensor):
+            torch._foreach_mul_(upd, lr)
+            torch._foreach_sub_(ps, upd)
+        else:
+            torch._foreach_add_(ps, upd, alpha=-lr)
 
     def zero_grad(self) -> None:
-        for p in self.params:
-            p.grad = None
+        """Zero the gradients in place (the next backward accumulates into
+        them): the gradient tensors keep their memory, so a captured step
+        writes the gradients its caller reads."""
+        grads = [p.grad for p in self.params if p.grad is not None]
+        if grads:
+            torch._foreach_zero_(grads)
 
     def state_dict(self) -> dict:
-        return {"count": self.count, "m": [m.clone() for m in self.m], "v": [v.clone() for v in self.v]}
+        return {"count": int(self.count), "m": [m.clone() for m in self.m], "v": [v.clone() for v in self.v]}
 
     def load_state_dict(self, state: dict) -> None:
-        self.count = int(state["count"])
+        """In place (a captured step keeps reading the same tensors); `count`
+        may be an int, as every checkpoint holds it, or a tensor."""
+        self.count.fill_(int(state["count"]))
         for dst, src in zip(self.m, state["m"]):
             dst.copy_(src)
         for dst, src in zip(self.v, state["v"]):

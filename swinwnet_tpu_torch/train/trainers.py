@@ -17,6 +17,17 @@ the model was built with `fused_blocks=True`, in `train()` and `eval()` alike:
 the trainers call the model with its default `deterministic=True`, as the
 JAX trainers do, so a model's dropout rates never act in them.
 
+The step factories are the JAX package's: `TrainState.create(model, tx)`,
+then `make_stage1_step(model, tx, loss_fn)(state, images, masks) -> (state,
+loss)`, `make_stage2_step`, `make_stage3_steps` (even and odd steps, `(state,
+aux)`, and their evals) and the eval factories. Each step or eval is a
+program (`core.graphs`): on the card a CUDA graph, captured once per batch
+shape, that holds the forward, the backward and the update (the learning
+rate and the bias corrections are read from the optimizer's count on the
+device) and replays them with one host call, as the JAX package jit-compiles
+them. A step updates the state in place and returns the same state. The
+three trainers step through these factories.
+
 Mixed precision: `compute_dtype=torch.bfloat16` runs the model's products
 in bf16 while parameters, optimizer state and losses stay fp32 and the
 gradients come out fp32 through the casts. bf16 has fp32's exponent range,
@@ -30,12 +41,14 @@ its caller asked for the CPU.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
 
 from ..core.device import resolve_dtype
+from ..core.graphs import Program
 from ..models.swin_wnet import SwinWNet
 from ..ops.norms import denormalize_piecewise, ensure_2ch, normalize_piecewise
 from ..ops.resize import bilinear_downscale_half, nearest_exact_resize
@@ -142,8 +155,111 @@ def stage3_odd_loss(model, seg_loss_fn, sr_loss_fn, weights, images, masks, dete
                    "hr_inter": inter, "hr_union": union}
 
 
+@dataclasses.dataclass(eq=False)
+class TrainState:
+    """The JAX `TrainState` over a module that owns its weights: `params`
+    the trainable parameters by name (updated in place), `opt_state` the
+    AdamW over them (its moments and count), `step` the steps taken, an
+    int64 tensor on the parameters' device (the optimizer's count)."""
+
+    params: Dict[str, torch.nn.Parameter]
+    opt_state: Optional[AdamW]
+    step: torch.Tensor
+
+    @classmethod
+    def create(cls, model: torch.nn.Module, tx: AdamW) -> "TrainState":
+        trains = {id(p) for p in tx.params}
+        params = {name: p for name, p in model.named_parameters() if id(p) in trains}
+        return cls(params=params, opt_state=tx, step=tx.count)
+
+
+def _state_tensors(state: TrainState, *_):
+    """What a step reads and updates in place besides the model."""
+    return state.opt_state.tensors()
+
+
+def _step_program(model: SwinWNet, loss_of: Callable, compute_dtype, aux: bool = False) -> Callable:
+    """`step(state, images, masks) -> (state, loss or aux)` from
+    `loss_of(images, masks) -> loss` (or `(loss, aux)`), as a program."""
+
+    def run(state: TrainState, images, masks):
+        opt = state.opt_state
+        # the backward too runs in the compute dtype: a model built with
+        # remat recomputes its blocks there, in the forward's dtype
+        with compute_dtype_of(model, compute_dtype):
+            out = loss_of(images, masks)
+            loss = out[0] if aux else out
+            opt.zero_grad()
+            loss.backward()
+        opt.step()
+        return {k: v.detach() for k, v in out[1].items()} if aux else loss.detach()
+
+    program = Program(run, modules=(model,), state=_state_tensors)
+
+    def step(state: TrainState, images, masks=None):
+        images, masks = _batch(model, images, masks)
+        return state, program(state, images, masks)
+
+    return step
+
+
+def _eval_program(model: SwinWNet, loss_of: Callable, compute_dtype, aux: bool = False) -> Callable:
+    """`eval_step(images, masks) -> loss or aux`, under no_grad, as a
+    program."""
+
+    @torch.no_grad()
+    def run(images, masks):
+        with compute_dtype_of(model, compute_dtype):
+            out = loss_of(images, masks)
+        return out[1] if aux else out
+
+    program = Program(run, modules=(model,))
+
+    def eval_step(images, masks=None):
+        return program(*_batch(model, images, masks))
+
+    return eval_step
+
+
+def make_stage1_step(model: SwinWNet, tx: AdamW, loss_fn, compute_dtype=None) -> Callable:
+    """Segmentation pretrain step: `step(state, images, masks) -> (state,
+    loss)`. `tx` is the optimizer the state was created with (the update
+    runs on `state.opt_state`); `compute_dtype` (None: the model's own) is
+    the JAX `_with_compute_dtype`: the forward and the backward run in it."""
+    return _step_program(model, lambda images, masks: stage1_loss(model, loss_fn, images, masks), compute_dtype)
+
+
+def make_stage1_eval(model: SwinWNet, loss_fn, compute_dtype=None) -> Callable:
+    """`eval_step(images, masks) -> loss`. The model owns its weights, so
+    there is no `params` argument (the JAX `eval_step(params, images,
+    masks)`), as in `make_inference_fn`."""
+    return _eval_program(model, lambda images, masks: stage1_loss(model, loss_fn, images, masks), compute_dtype)
+
+
+def make_stage2_step(model: SwinWNet, tx: AdamW, loss_fn, compute_dtype=None) -> Callable:
+    """SR pretrain step: `step(state, hr, _masks=None) -> (state, loss)`."""
+    return _step_program(model, lambda hr, _: stage2_loss(model, loss_fn, hr), compute_dtype)
+
+
+def make_stage2_eval(model: SwinWNet, loss_fn, compute_dtype=None) -> Callable:
+    """`eval_step(hr, _masks=None) -> loss`."""
+    return _eval_program(model, lambda hr, _: stage2_loss(model, loss_fn, hr), compute_dtype)
+
+
+def make_stage3_steps(model: SwinWNet, tx: AdamW, seg_loss_fn, sr_loss_fn, seg_weight_lr: float = 1.0,
+                      seg_weight_hr: float = 1.0, rec_weight: float = 1.0, compute_dtype=None):
+    """The joint even and odd steps, `step(state, images, masks) -> (state,
+    aux)`, and their evals, `eval_step(images, masks) -> aux`: (even_step,
+    odd_step, even_eval, odd_eval)."""
+    weights = (seg_weight_lr, seg_weight_hr, rec_weight)
+    even = lambda images, masks: stage3_even_loss(model, seg_loss_fn, sr_loss_fn, weights, images, masks)
+    odd = lambda images, masks: stage3_odd_loss(model, seg_loss_fn, sr_loss_fn, weights, images, masks)
+    return (_step_program(model, even, compute_dtype, aux=True), _step_program(model, odd, compute_dtype, aux=True),
+            _eval_program(model, even, compute_dtype, aux=True), _eval_program(model, odd, compute_dtype, aux=True))
+
+
 class _BaseTrainer:
-    """Shared plumbing: the optimizer step, best-validation selection,
+    """Shared plumbing: the train state, best-validation selection,
     `save` / `resume`. `log_path` streams per-epoch JSONL metrics."""
 
     stage = "all"
@@ -158,25 +274,27 @@ class _BaseTrainer:
         self.logger = MetricsLogger(log_path)
         self.history_train, self.history_val = [], []
         schedule = warmup_cosine_schedule(lr, warmup_epochs, num_epochs, max(len(train_loader), 1))
-        self.optimizer: Optional[AdamW] = masked_adamw(model, self.stage, schedule, weight_decay)
+        self.state = TrainState.create(model, masked_adamw(model, self.stage, schedule, weight_decay))
         # best-validation selection: keep a copy of the parameters of the
         # best-validation epoch on the device and restore it after the last
         self.keep_best = keep_best
         self._best_val = None
         self._best_params = None
         self.best_epoch = None
-        self._released_at = 0
+
+    @property
+    def optimizer(self) -> Optional[AdamW]:
+        """The state's AdamW (None once released)."""
+        return self.state.opt_state
+
+    @optimizer.setter
+    def optimizer(self, tx: AdamW) -> None:
+        self.state = TrainState.create(self.model, tx)
 
     @property
     def step(self) -> int:
         """Optimizer steps taken."""
-        return self.optimizer.count if self.optimizer is not None else self._released_at
-
-    def _backward_and_update(self, loss: torch.Tensor) -> None:
-        self.optimizer.zero_grad()
-        with compute_dtype_of(self.model, self.compute_dtype):  # remat recomputes in the forward's dtype
-            loss.backward()
-        self.optimizer.step()
+        return int(self.state.step)
 
     def _track_best(self, val_loss: float):
         if not self.keep_best or val_loss != val_loss:  # disabled or NaN
@@ -203,8 +321,7 @@ class _BaseTrainer:
 
     def release_training_state(self):
         """Drop the optimizer state so the next stage starts clean."""
-        self._released_at = self.step
-        self.optimizer = None
+        self.state = TrainState(params=self.state.params, opt_state=None, step=self.state.step)
 
     def save(self, directory: str) -> str:
         """Checkpoint the full train state (parameters, optimizer, step)."""
@@ -233,19 +350,15 @@ class SegmentatorTrainer(_BaseTrainer):
         super().__init__(model, train_loader, val_loader, num_epochs, warmup_epochs, lr, weight_decay,
                          compute_dtype, verbose, log_path, keep_best)
         self.loss_fn = get_segmentation_loss(loss)
+        self._step = make_stage1_step(model, self.optimizer, self.loss_fn, compute_dtype)
+        self._eval = make_stage1_eval(model, self.loss_fn, compute_dtype)
 
     def train_step(self, images, masks) -> torch.Tensor:
-        images, masks = _batch(self.model, images, masks)
-        with compute_dtype_of(self.model, self.compute_dtype):
-            loss = stage1_loss(self.model, self.loss_fn, images, masks)
-        self._backward_and_update(loss)
-        return loss.detach()
+        self.state, loss = self._step(self.state, images, masks)
+        return loss
 
-    @torch.no_grad()
     def eval_step(self, images, masks) -> torch.Tensor:
-        images, masks = _batch(self.model, images, masks)
-        with compute_dtype_of(self.model, self.compute_dtype):
-            return stage1_loss(self.model, self.loss_fn, images, masks)
+        return self._eval(images, masks)
 
     def train(self) -> Dict[str, list]:
         for epoch in range(self.num_epochs):
@@ -277,19 +390,15 @@ class UpscalerTrainer(_BaseTrainer):
         super().__init__(model, train_loader, val_loader, num_epochs, warmup_epochs, lr, weight_decay,
                          compute_dtype, verbose, log_path, keep_best)
         self.loss_fn = get_upscaler_loss(loss)
+        self._step = make_stage2_step(model, self.optimizer, self.loss_fn, compute_dtype)
+        self._eval = make_stage2_eval(model, self.loss_fn, compute_dtype)
 
     def train_step(self, hr, _masks=None) -> torch.Tensor:
-        hr, _ = _batch(self.model, hr)
-        with compute_dtype_of(self.model, self.compute_dtype):
-            loss = stage2_loss(self.model, self.loss_fn, hr)
-        self._backward_and_update(loss)
-        return loss.detach()
+        self.state, loss = self._step(self.state, hr)
+        return loss
 
-    @torch.no_grad()
     def eval_step(self, hr, _masks=None) -> torch.Tensor:
-        hr, _ = _batch(self.model, hr)
-        with compute_dtype_of(self.model, self.compute_dtype):
-            return stage2_loss(self.model, self.loss_fn, hr)
+        return self._eval(hr)
 
     def train(self) -> Dict[str, list]:
         for epoch in range(self.num_epochs):
@@ -318,22 +427,16 @@ class FullModelTrainer(_BaseTrainer):
         self.seg_fn = get_segmentation_loss(segmentator_loss)
         self.sr_fn = get_upscaler_loss(upscaler_loss)
         self.weights = (seg_weight_lr, seg_weight_hr, rec_weight)
-
-    def _loss(self, even: bool, images, masks):
-        images, masks = _batch(self.model, images, masks)
-        fn = stage3_even_loss if even else stage3_odd_loss
-        with compute_dtype_of(self.model, self.compute_dtype):
-            return fn(self.model, self.seg_fn, self.sr_fn, self.weights, images, masks)
+        self._even, self._odd, self._even_eval, self._odd_eval = make_stage3_steps(
+            model, self.optimizer, self.seg_fn, self.sr_fn, *self.weights, compute_dtype=compute_dtype)
 
     def train_step(self, images, masks, even: bool) -> Dict[str, torch.Tensor]:
         """One even or odd step; returns the aux losses (detached)."""
-        total, aux = self._loss(even, images, masks)
-        self._backward_and_update(total)
-        return {k: v.detach() for k, v in aux.items()}
+        self.state, aux = (self._even if even else self._odd)(self.state, images, masks)
+        return aux
 
-    @torch.no_grad()
     def eval_step(self, images, masks, even: bool) -> Dict[str, torch.Tensor]:
-        return self._loss(even, images, masks)[1]
+        return (self._even_eval if even else self._odd_eval)(images, masks)
 
     def _run_epoch(self, loader, train: bool) -> Dict[str, float]:
         tot = {"loss": 0.0, "seg_lr": 0.0, "seg_hr": 0.0, "rec": 0.0}

@@ -5,7 +5,9 @@ baselines' pipelines and the eval harness on synthesized data, runs the
 viewer CLI, the labeler, the C++ batcher, the calibration and the McStas
 spec, takes a dropout step, a remat step and a shifted level, and runs the
 data-parallel helpers and a one-rank gloo dry run, and runs the quality
-recipe at a tiny size, and imports the benchmark and `entry`, with jax, flax, optax,
+recipe at a tiny size, and imports the benchmark and `entry`, and runs the
+compiled programs (`core.graphs`: the three inference factories, `TrainState`
+and every step and eval factory), with jax, flax, optax,
 orbax and the JAX package refused by an import hook; and its entry points
 never quietly fall back to the CPU."""
 
@@ -48,7 +50,7 @@ for name in ("ops.resize", "ops.norms", "ops.window", "ops.swin_block", "models.
              "data.native_loader", "data.real", "data.calibration", "data.mcstas", "parallel.multihost",
              "parallel.sharding", "parallel.dryrun", "recipes.quality_run", "recipes.quality_continue",
              "recipes.rl_run", "recipes.classical_baselines", "recipes.train_synthetic", "recipes.bench",
-             "entry"):
+             "entry", "core.graphs"):
     assert "swinwnet_tpu_torch." + name in sys.modules, name
 m = models.SwinWNet(embed_dim=12, depths=(1, 1, 1, 1), num_heads=(3, 3, 3, 3),
                     error_matrix=True, fused_blocks=True, device="cpu")
@@ -124,6 +126,21 @@ from swinwnet_tpu_torch import entry as entry_mod
 from swinwnet_tpu_torch.recipes import bench
 assert entry_mod.dryrun_multichip is parallel.dryrun_multichip
 assert bench.steady_iters(lambda n: None, 0.0)[0] == 3 and "full_b64_bf16" in bench.RECORD_NAMES
+x = torch.rand(1, 1, 20, 30)
+assert pipelines.make_inference_fn(m)(x)["images_masked_hr"].shape == (1, 2, 40, 60)
+assert pipelines.make_split_inference_fn(m).stage_a(x)[1].shape == (1, 1, 20, 30)
+assert pipelines.make_rl_inference_fn(m, policy)(x)["alpha"].shape == (1, 1)
+tx = train.masked_adamw(m, "stage3", train.warmup_cosine_schedule(2e-4, 1, 2, 2))
+state = train.TrainState.create(m, tx)
+batch = (np.random.default_rng(0).uniform(0, 1e3, (2, 1, 20, 30)).astype(np.float32),
+         (np.random.default_rng(1).uniform(size=(2, 20, 30)) > 0.5).astype(np.float32))
+even, odd, even_eval, odd_eval = train.make_stage3_steps(m, tx, train.combined_loss, train.smooth_l1_loss)
+for step, ev in ((train.make_stage1_step(m, tx, train.combined_loss), train.make_stage1_eval(m, train.combined_loss)),
+                 (train.make_stage2_step(m, tx, train.smooth_l1_loss), train.make_stage2_eval(m, train.smooth_l1_loss)),
+                 (even, even_eval), (odd, odd_eval)):
+    state, out = step(state, *batch)
+    assert state.opt_state is tx and ev(*batch) is not None
+assert int(state.step) == 4
 bad = [n for n in sys.modules if n.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "swinwnet_tpu")]
 assert not bad, bad
 print("ok")
