@@ -34,6 +34,7 @@
    and one bf16 serving call, with launch counts and the plain comparison;
 6. the d-space physics on the card: `Qwrapper(d_centers_hr).rebin` of
    [8, 1, 250, 480] against a float64 bincount of the same index map, and
+   as a captured program against itself run eagerly, bit for bit;
    `diffraction_metrics_device` on 8 pairs of synthesized spectra against
    the host scipy oracle; identical and empty spectra give 0;
 7. RL serving: three [4, 2, 250, 480] requests of synthesized Bragg
@@ -47,7 +48,8 @@
    steps in bf16 at [4, 2, 250, 480] (scripts/rl_run.py's batch and dtype)
    with launches per step against the gate, every step's reward not 0, the frozen parameters
    unchanged bit for bit, and the reward and distance-gate times by CUDA
-   events;
+   events around the functions, so its step program runs eagerly here
+   (`core.graphs.run_eagerly`; [22] holds the program against it);
 9. fp32 at full fp32: under the TF32 flags as found (the script sets none;
    PyTorch's default lets cuDNN use TF32) and with TF32 switched on, the
    fp32 patch embedding and segmentation head at the published width agree
@@ -57,7 +59,9 @@
    the JAX bench's seg_only_b64_bf16 ([64, 2, 250, 480] uniform(0, 1e3),
    make_segmentation_fn) and SwinUNetSR ([4, 1, 250, 480] masked
    synthesized patterns, make_sr_fn, out [4, 1, 500, 960]), 3 requests
-   each: launches per call against the gate (6 and 10 cst), the output
+   each, replays of the two programs: one graph each, launches per replay
+   against the gate (6 and 10 cst), the replay against the same call run
+   eagerly (the same bits, else PIPE_TOL), the output
    against the same weights with fused_blocks=False (PIPE_TOL; SwinUNetSR's
    against the kernel's plain versions and beside the unfused route against
    the fp32 model), ms a call, images/s, peak memory, a profile of each;
@@ -119,9 +123,14 @@
    that warn; the segmentation heads' bilinear resizes at B=4 and 64
    against F.interpolate, both timed forward and backward, two backward
    passes the same bits;
-18. data parallelism: dryrun_multichip over NCCL on every card, then two
-   gloo ranks on one card at [2, 2, 250, 480] against one process on the
-   full batch (loss, gradients, updated parameters, HR IoU).
+18. data parallelism: dryrun_multichip over NCCL on every card, two steps
+   of make_stage3_steps' odd step with the gradients' mean in it (the
+   second a replay of the captured step, all-reduce included) against the
+   same two steps in one process run eagerly (the same bits, else
+   REMAT_GRAD_TOL); then two gloo ranks on one card at [2, 2, 250, 480]
+   against one process on the full batch (loss, gradients, updated
+   parameters, HR IoU), run eagerly: gloo copies CUDA tensors through the
+   host, which no graph can capture.
 19. the user's recipes (swinwnet_tpu_torch/recipes), each through its
    `main(argv)` as `python -m` runs it: quality_run at the published width
    and full geometry with the flagship flags (bf16, SmoothL1SSIMLoss,
@@ -150,7 +159,15 @@
    PIPE_TOL), launches a replay against the gate, an earlier call's
    tensors intact after the next, a new batch size and a replaced Parameter
    capturing again, load_state_dict not; the split programs against the
-   single one bit for bit; then four captured training steps of each stage
+   single one bit for bit; the RL step (make_rl_train_step) in bf16 at
+   [4, 2, 250, 480] on rl_model and Bragg lines: four captured steps
+   against four eager rl_steps from the same weights and noise (every
+   metric, model and policy leaf the same bits, else [8]'s limits; frozen
+   leaves; 26 cst a step), a capture on a batch with few distance-gate
+   candidates replayed on one with more against eager on both, and the
+   control with the gate's bound frozen at the first batch's count, which
+   must fail; the gate alone as a program and eagerly (CUDA events, device
+   busy); then four captured training steps of each stage
    (fp32 B=8 with fused_deep, bf16 B=4 with remat) against four eager ones
    from the same weights and batches, the learning rate doubling between
    steps 2 and 3: losses and every leaf (the same bits, else [4]'s
@@ -159,10 +176,11 @@
    program and of eager (median of 10, host clock) with the device-busy
    share of one profiled call each.
 
-The serving and training phases ([3], [4], [5], [7], [11]-[14],
-[17], [19], [21]) run through the programs because their callers do; a
-route that swaps functions in at run time (the plain versions, the
-pad-mask control) runs under `core.graphs.run_eagerly()`.
+The serving and training phases ([3], [4], [5], [7], [10]-[14],
+[17], [18], [19], [21]) run through the programs because their callers
+do; a route that swaps functions in at run time (the plain versions, the
+pad-mask control, [8]'s timers) runs under
+`core.graphs.run_eagerly()`, and so does a gloo group on the card.
 
 In bf16 each pipeline stage's mean error against the plain route is held to
 a limit from its own scale (bf16_limits): the smaller of how far bf16 moves
@@ -250,6 +268,7 @@ from swinwnet_tpu_torch.pipelines import (
 from swinwnet_tpu_torch.train import (
     AdamW,
     FullModelTrainer,
+    RLState,
     RLTrainer,
     SegmentatorTrainer,
     SwinWNetTrainingPipeline,
@@ -258,6 +277,7 @@ from swinwnet_tpu_torch.train import (
     combined_loss,
     make_stage1_step,
     make_stage2_step,
+    make_rl_train_step,
     make_stage3_steps,
     masked_adamw,
     rl_step,
@@ -1204,6 +1224,14 @@ def check_physics(rng):
           f"largest bin (rtol {REBIN_RTOL:.0e} a bin), the same bits when repeated {'ok' if ok else 'FAIL'}")
     if not ok:
         raise SystemExit("physics: the rebin disagrees with the bincount of its index map")
+    rebin = graphs.Program(qw.rebin)
+    rebin(x_dev)  # the warm-up, then the capture
+    replay = rebin(x_dev)
+    ok = rebin.num_graphs == 1 and torch.equal(replay, got)
+    print(f"  the rebin as a program (segment_reduce without its check, which reads the lengths back): the replay "
+          f"equals the eager rebin bit for bit {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("physics: the captured rebin differs from the eager one")
 
     pred = synth_spectra(rng, 8, n)
     true = pred * rng.uniform(0.7, 1.3, (8, 1)).astype(np.float32) + synth_spectra(rng, 8, n, n_peaks=2) * 0.3
@@ -1431,8 +1459,11 @@ def compare_rl_first_steps(rng, lines):
 def rl_main_path(rng, lines, n_steps=4):
     """RLTrainer over one epoch of n_steps [RL_B, 2, 250, 480] batches in
     bf16 (scripts/rl_run.py's batch and dtype), the reward's parts timed by
-    CUDA events. Returns (per-step ms, reward ms, distance-gate ms, ranks
-    the gate looped, launches in the run, peak GiB)."""
+    CUDA events around the functions it calls, so the step program runs
+    eagerly here (`graphs.run_eagerly`: a graph keeps the functions it
+    captured); [22] runs it captured. Returns (per-step ms, reward ms,
+    distance-gate ms, the gate's candidates a call, launches in the run,
+    peak GiB)."""
     model = rl_model()
     policy = rl_policy()
     loader = ProbeLoader([(bragg_patterns(rng, RL_B, lines),) for _ in range(n_steps)], model)
@@ -1461,7 +1492,8 @@ def rl_main_path(rng, lines, n_steps=4):
     torch.cuda.reset_peak_memory_stats()
     sb.reset_counts()
     try:
-        metrics = trainer.train_epoch()
+        with graphs.run_eagerly():
+            metrics = trainer.train_epoch()
         torch.cuda.synchronize()
     finally:
         Qwrapper.rebin, rl_mod.diffraction_metrics_device = orig
@@ -1485,11 +1517,13 @@ def rl_main_path(rng, lines, n_steps=4):
           f"(gate: {want}); policy steps {trainer.policy_opt.count}; rewards {[round(r, 4) for r in rewards]}; "
           f"epoch metrics "
           + " ".join(f"{k}={v:.4g}" for k, v in metrics.items()))
-    print(f"  RL ms per step {[round(ms, 1) for ms, _ in steps]}; of which the reward (2 rebins + metrics) "
+    print(f"  RL ms per step, eager {[round(ms, 1) for ms, _ in steps]}; of which the reward (2 rebins + metrics) "
           f"{[round(t, 2) for t in reward_ms]}, the distance gate {[round(t, 2) for t in dist]} over "
-          f"{ranks} candidate ranks; peak device memory {peak_gb:.2f} GiB")
+          f"{peaks_mod.max_candidates(len(d_centers_hr))} ranks ({ranks} of them candidates); peak device memory "
+          f"{peak_gb:.2f} GiB")
     images = loader.batches[1][0]
-    profile_call(lambda: train_step(images), f"one RL step, bf16, B={RL_B}")
+    with graphs.run_eagerly():
+        profile_call(lambda: train_step(images), f"one RL step, bf16, B={RL_B}, eager")
     return [ms for ms, _ in steps], reward_ms, dist, ranks, total, peak_gb
 
 
@@ -1597,7 +1631,7 @@ def sr_against_fp32(model, fn, request, got, unfused_out):
     mean."""
     with plain_blocks():
         plain = fn(request)
-    with unfused(model), compute_dtype_of(model, torch.float32):
+    with unfused(model), compute_dtype_of(model, torch.float32), graphs.run_eagerly():
         ref = fn(request).float()
     s_got, s_plain, s_ref = (sr_source(t, request) for t in (got, plain, ref))
     steps, noise = BF16_MEAN_STEPS * bf16_step(s_plain).item(), noise_limit(s_plain, s_ref)
@@ -1632,9 +1666,11 @@ def masked_patterns(rng, batch):
 def serve_baseline(kind, rng, n_calls=3):
     """SwinUNet through make_segmentation_fn at [SEG_B, 2, 250, 480]
     uniform(0, 1e3), or SwinUNetSR through make_sr_fn at [B, 1, 250, 480]
-    masked patterns, bf16, fused_blocks: launches per call against the gate,
-    the first output against the plain route. Returns (per-call ms, plain
-    ms, launches in the run, peak GiB, images a call)."""
+    masked patterns, bf16, fused_blocks, both programs: one graph, launches
+    per replay against the gate, the first replay against the same call
+    run eagerly (the same bits, else PIPE_TOL) and against the plain route.
+    Returns (per-call ms, plain ms, launches in the run, peak GiB, images a
+    call)."""
     bf16 = torch.bfloat16
     gen = torch.Generator().manual_seed(SEED)
     sr = kind == "SwinUNetSR"
@@ -1645,7 +1681,7 @@ def serve_baseline(kind, rng, n_calls=3):
         requests = [masked_patterns(rng, batch) for _ in range(n_calls)]
     else:
         requests = [rng.uniform(0, 1e3, (batch, c, H, W)).astype(np.float32) for _ in range(n_calls)]
-    fn(requests[0])  # warm-up: cuDNN and allocator
+    fn(requests[0])  # the program's warm-up (cuDNN, the allocator) and capture
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     sb.reset_counts()
@@ -1661,18 +1697,30 @@ def serve_baseline(kind, rng, n_calls=3):
             first = out
     total = launches()
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
-    with unfused(model):
+    # the calls above replayed the program the warm-up captured: against the
+    # same function run eagerly, the same bits
+    eager = eagerly(fn)(requests[0])
+    bits = torch.equal(first, eager)
+    if not bits:
+        pipe_compare(f"{kind} replay, against the same call run eagerly", first, eager, bf16, relative=sr)
+    eager_n = [b - a for a, b in zip(total, launches())]
+    with unfused(model), graphs.run_eagerly():
         t0 = time.perf_counter()
         plain = fn(requests[0])
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
     want = tower_launches((H, W), batch, bf16, False, "cmajor", sr)
     shape = (batch, 1, 2 * H, 2 * W) if sr else (batch, 1, H, W)
-    if launches() != total or any(n != want for n in per_call) or tuple(first.shape) != shape:
-        raise SystemExit(f"{kind}: launches per call {per_call} (gate: {want}), the plain route launched, "
-                         f"or the output is {tuple(first.shape)} (want {shape})")
-    print(f"  {kind} bf16 [{batch}, {c}, {H}, {W}] -> {list(shape)}: launches per call [cst, row-major, wide] "
-          f"{per_call} (gate: {want})")
+    if (launches() != add(total, eager_n) or any(n != want for n in per_call + [eager_n])
+            or tuple(first.shape) != shape):
+        raise SystemExit(f"{kind}: launches per call {per_call}, eagerly {eager_n} (gate: {want}), the plain route "
+                         f"launched, or the output is {tuple(first.shape)} (want {shape})")
+    if fn.program.num_graphs != 1:
+        raise SystemExit(f"{kind}: {fn.program.num_graphs} graphs captured for one shape")
+    PROGRAM_BITS[f"{kind} bf16"] = bits
+    print(f"  {kind} bf16 [{batch}, {c}, {H}, {W}] -> {list(shape)}: launches per replay [cst, row-major, wide] "
+          f"{per_call} (gate: {want}); {fn.program.num_graphs} graph; the replays against the call run eagerly: "
+          f"{'the same bits' if bits else 'within PIPE_TOL, not the same bits'}")
     if sr:
         sr_against_fp32(model, fn, requests[0], first, plain)
     else:
@@ -2445,21 +2493,47 @@ def shift_and_chunk_checks():
         raise SystemExit("attn_chunk changes the level's output")
 
 
-def dp_reference(hw, batch):
-    """The dry run's step in this process on the full batch, on the card:
-    (loss terms, gradients, parameters after)."""
+def dp_reference(hw, batch, steps=1):
+    """The dry run's odd step (make_stage3_steps) in this process on the
+    full batch, on the card, run eagerly, `steps` times: (the last step's
+    loss terms, gradients, parameters after)."""
     model = SwinWNet(**dryrun_mod.PUBLISHED, device="cuda", generator=torch.Generator().manual_seed(0))
     images, masks = dryrun_batch(batch, hw)
-    opt = masked_adamw(model, "stage3", dryrun_mod.LR)
-    total, aux = stage3_odd_loss(model, combined_loss, smooth_l1_loss, dryrun_mod.WEIGHTS,
-                                 ensure_2ch(torch.from_numpy(images).cuda()), torch.from_numpy(masks).cuda()[:, None])
-    opt.zero_grad()
-    total.backward()
-    opt.step()
+    tx = masked_adamw(model, "stage3", dryrun_mod.LR)
+    state = TrainState.create(model, tx)
+    _, odd_step, _, _ = make_stage3_steps(model, tx, combined_loss, smooth_l1_loss, *dryrun_mod.WEIGHTS)
+    with graphs.run_eagerly():
+        for _ in range(steps):
+            state, aux = odd_step(state, images, masks)
     torch.cuda.synchronize()
-    terms = {k: float(aux[k].detach()) for k in ("loss", "seg_lr", "seg_hr", "iou_hr")}
+    terms = {k: float(aux[k]) for k in ("loss", "seg_lr", "seg_hr", "iou_hr")}
     named = list(model.named_parameters())
     return terms, {k: p.grad.cpu() for k, p in named}, {k: p.detach().cpu() for k, p in named}
+
+
+def compare_captured_dp(out, ref, n, steps):
+    """The NCCL dry run's replayed steps against the same steps in one
+    process on the full batch, run eagerly: the same bits; else (cuBLAS may
+    take another algorithm under capture) the loss to REMAT_LOSS_RTOL, each
+    gradient to REMAT_GRAD_TOL of its leaf's max (TRAIN_GRAD_TOL over more
+    than one rank, whose sum runs in another order), each parameter within
+    2 lr a step."""
+    terms, grads, params = ref
+    bits = (out["loss"] == terms["loss"] and all(torch.equal(out["grads"][k], g) for k, g in grads.items())
+            and all(torch.equal(out["params"][k], p) for k, p in params.items()))
+    loss_rel = abs(out["loss"] - terms["loss"]) / abs(terms["loss"])
+    gap, gap_name = grad_gap(out["grads"], grads)
+    moved = max((out["params"][k] - p).abs().max().item() for k, p in params.items())
+    ok = bits or (loss_rel <= REMAT_LOSS_RTOL and gap <= (REMAT_GRAD_TOL if n == 1 else TRAIN_GRAD_TOL)
+                  and moved <= 2 * steps * dryrun_mod.LR)
+    PROGRAM_BITS[f"dry run NCCL x{n}"] = bits
+    print(f"  against the same {steps} steps in one process, run eagerly: "
+          + ("the same bits in the loss, every gradient and every parameter" if bits else
+             f"loss rel {loss_rel:.1e}, gradients worst {gap:.2e} of its max ({gap_name}), parameters apart "
+             f"{moved:.2e} at most")
+          + f" {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the dry run's captured steps disagree with the eager steps")
 
 
 def compare_dp(out, ref):
@@ -2490,20 +2564,26 @@ def compare_dp(out, ref):
 
 
 def dp_checks():
-    """dryrun_multichip over every card (NCCL), then two ranks on one card
-    over gloo at the full size against one process on the full batch."""
+    """dryrun_multichip over every card (NCCL) through make_stage3_steps'
+    odd step, two steps so that the second replays the captured step with
+    its all-reduce, against the same steps in one process; then two ranks on
+    one card over gloo at the full size against one process on the full
+    batch."""
     n = torch.cuda.device_count()
     t0 = time.perf_counter()
-    out = dryrun_multichip(n)
+    out = dryrun_multichip(n, steps=2)
     wall = time.perf_counter() - t0
-    print(f"  dryrun_multichip({n}), NCCL, published width, [{n}, 2, 80, 120]: loss {out['loss']:.6f} (seg_lr "
-          f"{out['seg_lr']:.6f}, seg_hr {out['seg_hr']:.6f}, iou_hr {out['iou_hr']:.4f}); the step {out['step_ms']:.1f} "
-          f"ms, the call {wall:.1f} s with the ranks' start")
+    print(f"  dryrun_multichip({n}, steps=2), NCCL, published width, [{n}, 2, 80, 120], make_stage3_steps' odd "
+          f"step with the mean over the mesh in it: loss {out['loss']:.6f} (seg_lr {out['seg_lr']:.6f}, seg_hr "
+          f"{out['seg_hr']:.6f}, iou_hr {out['iou_hr']:.4f}); the steps {[round(t, 1) for t in out['steps_ms']]} ms "
+          f"(the warm-up and capture, then a replay), the call {wall:.1f} s with the ranks' start")
+    compare_captured_dp(out, dp_reference((80, 120), n, steps=2), n, 2)
     t0 = time.perf_counter()
     two = dryrun_multichip(2, backend="gloo", hw=(H, W))
     wall2 = time.perf_counter() - t0
     print(f"  two ranks on one card over gloo, [2, 2, {H}, {W}] a sample a rank: the step {two['step_ms']:.1f} ms, "
-          f"the call {wall2:.1f} s")
+          f"the call {wall2:.1f} s; run eagerly (core.graphs.run_eagerly: gloo copies CUDA tensors through the "
+          f"host, which no graph can capture)")
     t0 = time.perf_counter()
     ref = dp_reference((H, W), 2)
     ref_ms = (time.perf_counter() - t0) * 1e3
@@ -3225,10 +3305,193 @@ def training_program(kind, dtype, batch, model_kw, rng):
     return [b - a for a, b in zip(start, launches())]
 
 
-def programs_phase(rng):
-    """[22]: serving and training through the programs at the published
-    width and full geometry. Returns the launches of the phase."""
+RL_DISTANCE = 10  # the reward's distance gate (diffraction_metrics_device's default)
+
+
+def rl_leaves(model, policy):
+    out = snapshot(model)
+    out.update({f"policy.{k}": p.detach().clone() for k, p in policy.named_parameters()})
+    return out
+
+
+@contextlib.contextmanager
+def counting_gate(counts, spectra=None):
+    """Note each distance-gate call's largest count of candidates in a
+    spectrum (a host read: eager runs only), and its inputs in `spectra`."""
+    enforce = peaks_mod._enforce_distance
+
+    def gate(mask, I, distance):
+        counts.append(int(mask.sum(1).max()))
+        if spectra is not None:
+            spectra[:] = [mask.clone(), I.clone()]
+        return enforce(mask, I, distance)
+
+    peaks_mod._enforce_distance = gate
+    try:
+        yield
+    finally:
+        peaks_mod._enforce_distance = enforce
+
+
+@contextlib.contextmanager
+def gate_bound(bound):
+    """The distance gate's static loop count set to `bound` (None: as it is)."""
+    orig = peaks_mod.max_candidates
+    if bound is not None:
+        peaks_mod.max_candidates = lambda n: bound
+    try:
+        yield
+    finally:
+        peaks_mod.max_candidates = orig
+
+
+def rl_candidates(images, noise):
+    """The most candidates the reward's gate sees in a spectrum on `images`
+    with `noise`, for rl_model's weights in bf16 (eager, no update)."""
+    model, policy, counts = rl_model(), rl_policy(), []
+    with torch.no_grad(), compute_dtype_of(model, torch.bfloat16), counting_gate(counts):
+        seg_images, norm_lr, _, params_hr, skips = rl_mod.rl_preprocess(model, images)
+        mu, std = policy(norm_lr)
+        rl_mod.rl_reward(model, Qwrapper(fixed_centers=d_centers_hr), norm_lr, skips, mu + std * noise, params_hr,
+                         seg_images, 2.0, 1.0, 0.5)
+    del model, policy
+    return counts[0]
+
+
+def rl_steps(batches, eager, bound=None, counts=None, spectra=None):
+    """One bf16 RL step a batch from rl_model's weights, noise drawn from a
+    generator seeded SEED on the card: through make_rl_train_step's program,
+    or (`eager`) rl_step itself on the same draws. `bound` patches the
+    distance gate's loop count while the program captures; `counts` and
+    `spectra` note the gate's calls (eager only). Returns (metrics a step,
+    leaves before, leaves after, launches a step, peak GiB above what was
+    allocated before the first step (the program's graph pool included),
+    the step)."""
+    model, policy = rl_model(), rl_policy()
+    model_tx = masked_adamw(model, "rl", 1e-5, weight_decay=0.0)
+    policy_tx = AdamW(policy.parameters(), 1e-4, weight_decay=0.0)
+    qw = Qwrapper(fixed_centers=d_centers_hr)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    state = RLState(TrainState.create(model, model_tx), TrainState.create(policy, policy_tx), gen)
+    step = make_rl_train_step(model, policy, model_tx, policy_tx, qw, compute_dtype="bfloat16")
+
+    def eager_step(images):
+        noise = torch.randn((images.shape[0], 1), generator=gen, device="cuda")
+        with compute_dtype_of(model, torch.bfloat16):
+            return rl_step(model, policy, model_tx, policy_tx, qw, images, noise)
+
+    before, metrics, per_step = rl_leaves(model, policy), [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()  # the weights and what earlier phases hold
+    noting = counting_gate(counts, spectra) if counts is not None else contextlib.nullcontext()
+    with gate_bound(bound), noting:
+        for images in batches:
+            n0 = launches()
+            m = eager_step(images) if eager else step(state, images)[1]
+            metrics.append({k: float(v) for k, v in m.items()})
+            per_step.append([b - a for a, b in zip(n0, launches())])
+    peak_gb = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    return metrics, before, rl_leaves(model, policy), per_step, peak_gb, (lambda images: step(state, images))
+
+
+def rl_agree(got, want, before):
+    """RL steps against RL steps: (the same bits in every metric and leaf,
+    within [8]'s limits: each metric to TRAIN_LOSS_RTOL, each leaf to
+    TRAIN_GRAD_TOL of its largest change)."""
+    (m_g, after_g), (m_w, after_w) = got, want
+    differ, worst = agree(after_g, after_w, before)
+    close = all(a[k] == b[k] or abs(a[k] - b[k]) <= TRAIN_LOSS_RTOL * abs(b[k]) for a, b in zip(m_g, m_w) for k in b)
+    return m_g == m_w and not differ, close and worst <= TRAIN_GRAD_TOL
+
+
+def rl_program(rng, lines):
+    """[22]'s RL step: four captured bf16 steps at [RL_B, 2, 250, 480]
+    against four eager rl_steps from the same weights and noise (the same
+    bits, else [8]'s limits), frozen leaves, launches a step; a capture on a
+    batch with few distance-gate candidates replayed on one with more
+    against eager on the same two batches, and the control with the gate's
+    bound frozen at the first batch's count, which must fail; times of
+    program and eager, peak memory, and the gate alone as a program and
+    eagerly. Returns the launches of the checked runs."""
+    start = launches()
+    want = expected_launches("rl", RL_B, torch.bfloat16, False, "cmajor")
+    batches = [torch.from_numpy(bragg_patterns(rng, RL_B, lines)).cuda() for _ in range(PROGRAM_STEPS)]
+    counts, spectra = [], []
+    e_metrics, before, e_after, _, e_peak, _ = rl_steps(batches, eager=True, counts=counts, spectra=spectra)
+    p_metrics, before_p, p_after, per_step, p_peak, step = rl_steps(batches, eager=False)
+    bits, close = rl_agree((p_metrics, p_after), (e_metrics, e_after), before)
+    model_leaves = lambda d: {k: v for k, v in d.items() if not k.startswith("policy.")}
+    frozen = [k for k in model_leaves(before) if not STAGE_TRAINS["rl"](k.split(".")[0])]
+    frozen_same = all(torch.equal(p_after[k], before[k]) for k in frozen)
+    policy_moved = all(not torch.equal(p_after[k], before[k]) for k in before if k.startswith("policy."))
+    rewards = [m["reward"] for m in p_metrics]
+    ok = close and frozen_same and policy_moved and all(n == want for n in per_step) and 0.0 not in rewards
+    PROGRAM_BITS["RL step bf16"] = bits
+    e_rewards = [f"{m['reward']:.7g}" for m in e_metrics]
+    print(f"  RL step bf16 B={RL_B}: {PROGRAM_STEPS} captured steps against as many eager rl_steps: rewards "
+          f"{[f'{r:.7g}' for r in rewards]} eager {e_rewards}; every metric and "
+          f"{len(before)} model and policy leaves: {'the same bits' if bits else 'within [8] limits, not the same bits'}; "
+          f"{len(frozen)} frozen leaves the same bits: {frozen_same}; launches a step {per_step} (gate: {want}); "
+          f"the gate's candidates a step {counts} of {peaks_mod.max_candidates(len(d_centers_hr))} ranks; peak "
+          f"device memory above the start {p_peak:.2f} GiB (eager {e_peak:.2f}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("[22] RL: the captured steps disagree with the eager rl_steps")
+    x = batches[0]
+    time_routes(f"RL step bf16 B={RL_B}", lambda: step(x), eagerly(lambda: step(x)))
+    RL_PROGRAM["peak_gib"] = (p_peak, e_peak)
+    mask, I = spectra
+    gate = graphs.Program(lambda m, i: peaks_mod._enforce_distance(m, i, RL_DISTANCE))
+    same = torch.equal(gate(mask, I), gate(mask, I))
+    RL_PROGRAM["gate_ms"] = (cuda_ms(lambda: gate(mask, I), 10),
+                             cuda_ms(lambda: peaks_mod._enforce_distance(mask, I, RL_DISTANCE), 3))
+    profile_call(lambda: gate(mask, I), "the distance gate, program", quiet=True)
+    profile_call(lambda: peaks_mod._enforce_distance(mask, I, RL_DISTANCE), "the distance gate, eager", quiet=True)
+    if not same:
+        raise SystemExit("[22] RL: the captured distance gate differs from its warm-up")
+    del step, gate
+
+    # capture on a batch with few candidates, replay on one with more
+    noises = torch.randn((2, RL_B, 1), generator=torch.Generator(device="cuda").manual_seed(SEED), device="cuda")
+    b = torch.from_numpy(bragg_patterns(rng, RL_B, lines)).cuda()
+    raw = torch.from_numpy(bragg_patterns(rng, RL_B, lines)).cuda()
+    c_b = rl_candidates(b, noises[1])
+    for scale in (1e-3, 1e-4, 1e-5, 1e-6):
+        a = raw * scale
+        c_a = rl_candidates(a, noises[0])
+        if 0 < c_a <= c_b // 2:
+            break
+    else:
+        raise SystemExit(f"[22] RL: no scale of a batch gives fewer gate candidates than {c_b}")
+    counts = []
+    e_metrics, before, e_after, _, _, _ = rl_steps([a, b], eager=True, counts=counts)
+    p_metrics, _, p_after, _, _, _ = rl_steps([a, b], eager=False)
+    bits_ab, close_ab = rl_agree((p_metrics, p_after), (e_metrics, e_after), before)
+    c_metrics, _, c_after, _, _, _ = rl_steps([a, b], eager=False, bound=counts[0])
+    bits_c, close_c = rl_agree((c_metrics[1:], c_after), (e_metrics[1:], e_after), before)
+    ok = counts[1] > counts[0] and close_ab and not close_c
+    PROGRAM_BITS["RL capture on A, replay on B"] = bits_ab
+    print(f"  RL capture on A (Bragg patterns x{scale:g}: {counts[0]} gate candidates in a spectrum at most), replay "
+          f"on B ({counts[1]} candidates): against eager on A then B, "
+          f"{'the same bits' if bits_ab else 'within [8] limits, not the same bits' if close_ab else 'FAIL'}; "
+          f"reward on B {p_metrics[1]['reward']:.7g} eager {e_metrics[1]['reward']:.7g}; control, the gate's bound "
+          f"frozen at A's {counts[0]}: reward on B {c_metrics[1]['reward']:.7g}, fails the comparison: "
+          f"{not close_c} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("[22] RL: a replay on a batch with more gate candidates than its capture's is wrong, or the "
+                         "frozen-bound control was not caught")
+    torch.cuda.empty_cache()
+    return [b_ - a_ for a_, b_ in zip(start, launches())]
+
+
+RL_PROGRAM = {}  # "peak_gib": (program, eager); "gate_ms": (program, eager)
+
+
+def programs_phase(rng, lines):
+    """[22]: serving, the RL step and training through the programs at the
+    published width and full geometry. Returns the launches of the phase."""
     total = serving_programs(rng)
+    total = add(total, rl_program(rng, lines))
     for kind in ("stage1", "stage2", "stage3_even", "stage3_odd"):
         total = add(total, training_program(kind, torch.float32, TRAIN_B, {"fused_deep": True}, rng))
     for kind in ("stage1", "stage2", "stage3_even", "stage3_odd"):
@@ -3379,7 +3642,8 @@ def main() -> int:
     warm = lambda ts: float(np.mean(ts[1:]))
     print(f"  RL fine-tune bf16 B={RL_B}: ms per step {[round(t, 1) for t in rl_ms]}, after the first "
           f"{warm(rl_ms):.1f} ms; of which the reward (2 rebins + metrics) {warm(reward_ms):.2f} ms and the "
-          f"distance gate {warm(gate_ms):.2f} ms ({ranks} ranks); peak device memory {rl_peak_gb:.2f} GiB")
+          f"distance gate {warm(gate_ms):.2f} ms ({peaks_mod.max_candidates(len(d_centers_hr))} ranks, {ranks} "
+          f"candidates), eager ([22] has the program); peak device memory {rl_peak_gb:.2f} GiB")
     print(f"  RL serving bf16 B={RL_B}: per call {', '.join(f'{t:.1f}' for t in rl_call_ms)} ms (mean "
           f"{float(np.mean(rl_call_ms)):.1f} ms); through the plain versions {rl_plain_ms:.1f} ms")
     print("  physics alone: " + "; ".join(f"{k} {v:.4f} ms" for k, v in phys_ms.items()))
@@ -3449,16 +3713,25 @@ def main() -> int:
     before = launches()
     bench_phase()
     main_path = add(main_path, [b - a for a, b in zip(before, launches())])
-    print(f"[22] the compiled programs: serving ({B} and 1 images) and training steps (fp32 B={TRAIN_B} fused_deep, "
-          f"bf16 B={RECIPE_B} remat) replaying CUDA graphs, against the same pipelines and steps run eagerly")
+    print(f"[22] the compiled programs: serving ({B} and 1 images), the RL step (bf16 B={RL_B}) and training steps "
+          f"(fp32 B={TRAIN_B} fused_deep, bf16 B={RECIPE_B} remat) replaying CUDA graphs, against the same pipelines "
+          f"and steps run eagerly")
     t22 = time.perf_counter()
-    main_path = add(main_path, programs_phase(rng))
+    main_path = add(main_path, programs_phase(rng, lines))
     print(f"  phase [22] {time.perf_counter() - t22:.0f} s")
     print(f"[22] times on {smi}: ms a call or step, host clock, median of {PROGRAM_CALLS}; device busy over one "
           f"profiled call")
     for what, p_ms, e_ms, p_busy, e_busy in PROGRAM_TIMES:
         print(f"  {what}: program {p_ms:.2f} ms (busy {p_busy:.1f}%), eager {e_ms:.2f} ms (busy {e_busy:.1f}%), "
               f"{e_ms / p_ms:.2f}x")
+    (g_ms, ge_ms), (p_gib, e_gib) = RL_PROGRAM["gate_ms"], RL_PROGRAM["peak_gib"]
+    print(f"  RL step bf16 B={RL_B}: peak device memory over {PROGRAM_STEPS} steps above their start (the program's "
+          f"graph pool included), program {p_gib:.2f} GiB, eager "
+          f"{e_gib:.2f} GiB; its distance gate alone on a step's [{2 * RL_B}, {len(d_centers_hr)}] spectra "
+          f"({peaks_mod.max_candidates(len(d_centers_hr))} ranks), CUDA events: program {g_ms:.3f} ms, eager "
+          f"{ge_ms:.3f} ms; device busy under the profiler: program "
+          f"{PROFILES['the distance gate, program'][1]:.3f} ms, eager {PROFILES['the distance gate, eager'][1]:.3f} "
+          f"ms of {PROFILES['the distance gate, eager'][0]:.1f}")
     print(f"  whole script {time.perf_counter() - t_start:.0f} s")
 
     print(json.dumps({"kernels": [

@@ -6,6 +6,7 @@ from .dryrun import dryrun_multichip
 from .multihost import initialize_multihost, process_batch_slice
 from .sharding import (
     allreduce_gradients,
+    data_parallel,
     data_sharding,
     make_mesh,
     pad_to_multiple,
@@ -22,5 +23,6 @@ __all__ = [
     "pad_to_multiple",
     "process_batch_slice",
     "allreduce_gradients",
+    "data_parallel",
     "dryrun_multichip",
 ]

@@ -4,8 +4,8 @@ on `torch.distributed`.
 One process drives one card. `initialize_multihost` brings up the process
 group every rank joins (NCCL on the card, gloo on the CPU); the ranks then
 build the 1-D data mesh (`sharding.make_mesh`) over it. Where JAX's GSPMD
-inserts the gradient psum, a torch rank calls
-`sharding.allreduce_gradients` after its backward.
+inserts the gradient psum, a torch rank's optimizer takes the mean over
+the mesh before its update (`sharding.data_parallel`).
 """
 
 from __future__ import annotations

@@ -5,8 +5,12 @@ Parameters are replicated and the batch axis is split over the ranks of
 the group `multihost.initialize_multihost` brought up; each rank runs the
 whole model on its slice. The model (~29M parameters) fits on one card,
 so data parallelism is the strategy that pays, as in the JAX package.
-JAX's GSPMD inserts the gradient all-reduce itself; here a rank calls
-`allreduce_gradients` between its backward and its optimizer step. The
+JAX's GSPMD inserts the gradient all-reduce itself; here the optimizer
+carries it: `data_parallel(tx, mesh)` makes an `AdamW` average its
+gradients over the mesh before each update, as optax chains a transform
+before its optimizer, so a step factory's program (`make_stage3_steps`
+and the others) all-reduces inside the step, between the backward and the
+update; a hand-written loop calls `allreduce_gradients` there instead. The
 model is not wrapped in DistributedDataParallel: the trainers call
 `segment_1` / `upscale` / `segment_2`, not the module's `forward` that DDP
 hooks.
@@ -14,6 +18,7 @@ hooks.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import numpy as np
@@ -88,7 +93,20 @@ def allreduce_gradients(module: nn.Module, mesh) -> None:
     """Average the `.grad` of every parameter that has one over the mesh,
     through one flat buffer. Every rank must hold the same set of
     gradients (frozen parameters have none on any rank)."""
-    grads = [p.grad for p in module.parameters() if p.grad is not None]
+    mean_over(mesh, [p.grad for p in module.parameters() if p.grad is not None])
+
+
+def data_parallel(tx, mesh):
+    """`tx` (an `AdamW`) with its gradients averaged over `mesh` before each
+    update; returns `tx`. Every rank must hold the same set of gradients."""
+    tx.grad_transform = functools.partial(mean_over, mesh)
+    return tx
+
+
+@torch.no_grad()
+def mean_over(mesh, grads) -> None:
+    """Average the tensors `grads` over the mesh in place, through one flat
+    buffer (one all-reduce)."""
     if not grads:
         return
     flat = torch.cat([g.reshape(-1) for g in grads])

@@ -41,7 +41,9 @@ def interp(x: torch.Tensor, xp: torch.Tensor, fp: torch.Tensor, left=None, right
     epsilon = float(np.spacing(np.finfo(_NUMPY_DTYPE[xp.dtype]).eps))
     dx0 = dx.abs() <= epsilon
     f = torch.where(dx0, fp0, fp0 + (delta / torch.where(dx0, torch.ones_like(dx), dx)) * df)
-    f = torch.where(x < xp[..., :1], fp[..., :1] if left is None else torch.as_tensor(left, dtype=f.dtype), f)
-    f = torch.where(x > xp[..., -1:], fp[..., -1:] if right is None else torch.as_tensor(right, dtype=f.dtype), f)
+    # `left` / `right` as Python scalars: a CPU tensor would be copied to the
+    # device, which a CUDA graph cannot capture
+    f = torch.where(x < xp[..., :1], fp[..., :1] if left is None else float(left), f)
+    f = torch.where(x > xp[..., -1:], fp[..., -1:] if right is None else float(right), f)
     return f
 

@@ -6,8 +6,8 @@ rule, then the height, distance, prominence and width gates, in scipy's
 order) over a batch of spectra `[B, n]` at once, returning a fixed-size
 padded peak table per spectrum. The JAX package writes it for one spectrum
 and vmaps it; here every step is batched from the start, and the one
-sequential step, the distance gate, loops over candidate ranks for the whole
-batch together.
+sequential step, the distance gate, loops over a static count of ranks for
+the whole batch together.
 
 The host-side spec transcription (`find_peaks_for_batch` etc., used where
 exact scipy parity matters) is :mod:`.host_oracle`'s, re-exported here.
@@ -95,6 +95,13 @@ def _widths(I: torch.Tensor, peak_mask: torch.Tensor, prom: torch.Tensor, rel_he
     return torch.where(peak_mask, rips - lips, 0.0)
 
 
+def max_candidates(n: int) -> int:
+    """The most local maxima a length-n spectrum can hold, (n - 1) // 2: the
+    edges are never peaks, and two maxima need a lower sample between them
+    (an alternating spectrum reaches it)."""
+    return (n - 1) // 2
+
+
 def _enforce_distance(peak_mask: torch.Tensor, I: torch.Tensor, distance: int) -> torch.Tensor:
     """scipy `_select_by_peak_distance` over [B, n]: the highest peaks claim
     their window first; a peak survives iff no kept peak lies within
@@ -103,26 +110,33 @@ def _enforce_distance(peak_mask: torch.Tensor, I: torch.Tensor, distance: int) -
 
     The priority order is a lexsort (height descending, then position
     descending) written as two stable sorts: by the secondary key first
-    (position descending, the reversal), then by the primary. The loop runs
-    over candidate ranks, once for the whole batch, as far as the largest
-    count of candidates in a spectrum: reading that count is one host sync."""
+    (position descending, the reversal), then by the primary. Every
+    candidate ranks before every non-candidate, so the loop runs over the
+    first `max_candidates(n)` ranks, whatever the data: a static count, as
+    the JAX package's scan over all n ranks, with no read from the device
+    (a CUDA graph replays it on any batch). `peak_mask` holds local maxima
+    (`_local_maxima_mask`, gated), so it has no more candidates than that;
+    a rank past a spectrum's candidates is not valid and changes nothing.
+
+    The loop works in rank space: `near[b, k, j]` says whether ranks k and j
+    lie within `distance`, and `blocked[b, j]` counts the kept ranks near
+    rank j, so a rank takes two launches, its verdict and the count."""
     B, n = I.shape
+    K = max_candidates(n)
     idx = torch.arange(n, device=I.device)
     priority = torch.where(peak_mask, I, -torch.inf)
     by_position = idx.flip(0).expand(B, n)
     order = by_position.gather(1, torch.argsort(-priority.flip(-1), dim=1, stable=True))
-    n_ranks = int(peak_mask.sum(1).max())
-    pos = order[:, :n_ranks]  # [B, K]: every candidate ranks before every non-candidate
-    valid = peak_mask.gather(1, pos)
-    near = (idx - pos[..., None]).abs() < distance  # [B, K, n]: the window each rank claims
+    pos = order[:, :K]  # [B, K]: distinct positions, the candidates first
+    valid = peak_mask.gather(1, pos).to(torch.int32)
+    near = ((pos[:, :, None] - pos[:, None, :]).abs() < distance).to(torch.int32)  # [B, K, K]
+    kept = torch.zeros_like(valid)  # [B, K]: 1 where the rank survives
+    blocked = torch.zeros_like(valid)  # [B, K]: kept ranks within `distance` so far
+    for k in range(K):
+        torch.gt(valid[:, k], blocked[:, k], out=kept[:, k])  # valid and not blocked
+        blocked.addcmul_(near[:, k], kept[:, k:k + 1])
     keep = torch.zeros_like(peak_mask)
-    blocked = torch.zeros_like(peak_mask)  # within `distance` of a kept peak
-    for k in range(n_ranks):
-        p = pos[:, k:k + 1]
-        survives = valid[:, k:k + 1] > blocked.gather(1, p)  # valid and not blocked
-        keep.scatter_(1, p, survives)
-        blocked |= near[:, k] & survives
-    return keep
+    return keep.scatter_(1, pos, kept.bool())
 
 
 def find_peaks_device(I, height=0.05, distance=10, prominence=0.1, width=5,

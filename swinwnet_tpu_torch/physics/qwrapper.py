@@ -14,7 +14,10 @@ by `torch.segment_reduce`. That is a deterministic reduction, chosen over
 (height, prominence, width, the 0.05 A matching tolerance), so a sum that
 changed in its last bit from run to run could change the reward; summed in
 pixel order, the card's spectra are those of a sequential sum, as the CPU's
-are.
+are. The lengths are a bincount and the gathered pixels exactly those they
+count, so they pass segment_reduce's check by construction; the reduction
+runs `unsafe`, without it: the check reads the lengths back from the device
+on every call, which a CUDA graph cannot capture.
 """
 
 from __future__ import annotations
@@ -87,6 +90,7 @@ class Qwrapper:
         self.device = device
         self._index_cache: Dict[Tuple[int, int], np.ndarray] = {}
         self._segment_cache: Dict[Tuple[int, int, torch.device], Tuple[torch.Tensor, torch.Tensor]] = {}
+        self._centers_cache: Dict[torch.device, torch.Tensor] = {}
 
     def _indices_for(self, H: int, W: int) -> np.ndarray:
         """Per-pixel target bin (int64), masked pixels -> dump bin n_bins."""
@@ -124,7 +128,14 @@ class Qwrapper:
         B, H, W = batch.shape
         order, lengths = self._segments_for(H, W, batch.device)
         I_sorted = batch.reshape(B, H * W).float().index_select(1, order)
-        return torch.segment_reduce(I_sorted, "sum", lengths=lengths.expand(B, -1), axis=1)
+        return torch.segment_reduce(I_sorted, "sum", lengths=lengths.expand(B, -1), axis=1, unsafe=True)
+
+    def centers_on(self, device) -> torch.Tensor:
+        """The bin centers as an fp32 tensor on `device`, copied there once."""
+        device = torch.device(device)
+        if device not in self._centers_cache:
+            self._centers_cache[device] = torch.from_numpy(self.centers).to(device)
+        return self._centers_cache[device]
 
     def tensor_to_d(self, batch_tensor):
         """Reference-compatible API: list of per-sample {"d", "I"} numpy dicts."""

@@ -7,14 +7,18 @@ BASELINE configs #1 and #2).
   (checkpoint: SwinUnetSR_upscaler_for_segmented_diffraction.pth), with the
   reference's normalize -> upscale -> denormalize wrapping.
 
-Each returns a callable that takes numpy or a tensor and runs under
-`torch.inference_mode` on the model's device.
+Each returns a callable that takes numpy or a tensor, moves it to the
+model's device and runs the pipeline there under `torch.inference_mode` as
+one program (`core.graphs`: on the card a CUDA graph captured once per
+input shape and replayed, as the JAX package jit-compiles it); the program
+is the callable's `program` attribute.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..core.graphs import Program
 from ..models.swin_unet import SwinUNet, SwinUNetSR
 from ..ops.norms import denormalize_piecewise, normalize_piecewise
 
@@ -23,25 +27,30 @@ def _on_device(model: torch.nn.Module, images) -> torch.Tensor:
     return torch.as_tensor(images).to(device=next(model.parameters()).device, dtype=torch.float32)
 
 
+def _program_of(model: torch.nn.Module, run):
+    """`run(images)` as a program over `model`, behind a callable that
+    takes numpy or a tensor."""
+    program = Program(torch.inference_mode()(run), modules=(model,))
+
+    def fn(images) -> torch.Tensor:
+        return program(_on_device(model, images))
+
+    fn.program = program
+    return fn
+
+
 def make_segmentation_fn(model: SwinUNet):
     model.eval()
-
-    @torch.inference_mode()
-    def fn(images) -> torch.Tensor:
-        return torch.sigmoid(model(_on_device(model, images)))
-
-    return fn
+    return _program_of(model, lambda images: torch.sigmoid(model(images)))
 
 
 def make_sr_fn(model: SwinUNetSR, normalize: bool = True):
     model.eval()
 
-    @torch.inference_mode()
-    def fn(images) -> torch.Tensor:
-        images = _on_device(model, images)
+    def run(images):
         if normalize:
             norm, params = normalize_piecewise(images)
             return denormalize_piecewise(model(norm), params)
         return model(images)
 
-    return fn
+    return _program_of(model, run)

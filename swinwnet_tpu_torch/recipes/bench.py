@@ -12,7 +12,7 @@ batch sizes, dtypes and routes:
 * full_b64_bf16       headline serving throughput (images/s a card)
 * full_b1_bf16        single-image serving latency (ms an image)
 * full_b8_fp32        fp32, fused blocks off
-* seg_only_b64_bf16   SwinUNet through `make_segmentation_fn`
+* seg_only_b64_bf16   SwinUNet through `make_segmentation_fn`'s program
 * rl_full_b64_bf16    the RL alpha-policy pipeline (`RLInference`'s stages)
 * train_stage1_b4, train_stage3_odd_b4 and their _bf16 variants: one step
   (forward, backward, the stage's masked AdamW) with fp32 parameters,
@@ -24,10 +24,10 @@ batch sizes, dtypes and routes:
   every card, one rank a card through `parallel`, batch 64 a card
 
 The serving records run the pipelines' programs (`make_inference_fn`,
-`make_rl_inference_fn`: a CUDA graph per shape, replayed) and the training
-records the step factories' (`TrainState`, `make_stage1_step`,
-`make_stage3_steps`), as bench.py runs the jitted functions; the baseline
-`make_segmentation_fn` runs eagerly.
+`make_rl_inference_fn`, `make_segmentation_fn`: a CUDA graph per shape,
+replayed) and the training records the step factories' (`TrainState`,
+`make_stage1_step`, `make_stage3_steps`), as bench.py runs the jitted
+functions.
 
 Each record is a loop sized from a 2-iteration probe to
 SWINWNET_BENCH_TARGET_S seconds of steady state (30 by default);

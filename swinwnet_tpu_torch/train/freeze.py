@@ -13,7 +13,7 @@ parameters, with the arithmetic of `optax.adamw`.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Union
+from typing import Callable, Dict, List, Optional, Union
 
 import torch
 from torch import nn
@@ -53,7 +53,12 @@ class AdamW:
     bias corrections there, with no host sync: a CUDA graph can capture a
     step, and each replay reads the count it has reached. A schedule is
     called with the count tensor and returns an fp32 tensor or a float
-    (`warmup_cosine_schedule` does either)."""
+    (`warmup_cosine_schedule` does either).
+
+    `grad_transform`, None by default, is a function a step applies in
+    place to the gradients before the update, as optax chains a transform
+    before its optimizer: `parallel.data_parallel` sets it to the mean over
+    a data mesh. Set it before the first step a program captures."""
 
     def __init__(self, params, learning_rate: Union[float, Callable], weight_decay: float = 1e-4,
                  b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
@@ -64,6 +69,7 @@ class AdamW:
         self.count = torch.zeros((), dtype=torch.int64, device=device)
         self.m = [torch.zeros_like(p) for p in self.params]
         self.v = [torch.zeros_like(p) for p in self.params]
+        self.grad_transform: Optional[Callable[[List[torch.Tensor]], None]] = None
 
     def lr(self):
         """The learning rate of the next step: a tensor on the count's
@@ -84,6 +90,8 @@ class AdamW:
         ps, ms, vs = self.params, self.m, self.v
         if not ps:
             return
+        if self.grad_transform is not None:
+            self.grad_transform([p.grad for p in ps if p.grad is not None])
         # the bias corrections in fp32, as optax takes them: 1 - 0.999**t loses
         # five digits there, and the parity with the JAX trainers rests on it
         t = self.count.float()

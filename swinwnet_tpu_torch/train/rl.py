@@ -14,23 +14,33 @@ One step (`rl_step`), on the model's device throughout:
 
 The reward never leaves the card: the reference computes it with scipy on
 the CPU every batch (RL_finetuning_pipline.py:202-230); here it is
-`physics.device_metrics` over `Qwrapper.rebin` spectra, whose distance gate
-costs one host sync. The policy's Adam is `optax.adam`, which is the
-port's `AdamW` with weight_decay 0.
+`physics.device_metrics` over `Qwrapper.rebin` spectra, and the step reads
+nothing back from the device (the distance gate loops a static count of
+ranks). The policy's Adam is `optax.adam`, which is the port's `AdamW`
+with weight_decay 0.
+
+`make_rl_train_step` is the JAX factory: `step(state: RLState, images) ->
+(state, metrics)`, `rl_step` as one program (`core.graphs`: on the card a
+CUDA graph captured once per batch shape that holds the preprocess, the
+rollout and its reward, both backwards and both updates, replayed with one
+host call). `RLTrainer` steps through it.
 
 As the JAX package, the sampled action is detached (standard REINFORCE):
 the reference differentiates log_prob through an rsample, which cancels
 the gradient identically.
 
-`noise` [B, 1] is an argument of the step: the JAX step draws it from its
-PRNG key, which torch cannot reproduce. `RLTrainer` draws it from a
-`torch.Generator` on the model's device seeded with `seed`.
+`noise` [B, 1] is an argument of `rl_step`: the JAX step draws it from its
+PRNG key, which torch cannot reproduce. `make_rl_train_step` draws it from
+the state's `torch.Generator` (on the model's device; `RLTrainer` seeds it
+with `seed`) outside the program, one draw a step, the stream the eager
+trainer drew, and hands it in as an input: the graph holds no draw.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Dict
+from typing import Callable, Dict
 
 import numpy as np
 import torch
@@ -41,8 +51,9 @@ from ..ops.norms import denormalize_piecewise, ensure_2ch, normalize_piecewise
 from ..ops.resize import bilinear_downscale_half
 from ..physics.device_metrics import diffraction_metrics_device
 from ..physics.qwrapper import Qwrapper, d_centers_hr
+from ..core.graphs import Program
 from .freeze import AdamW, masked_adamw
-from .trainers import compute_dtype_of
+from .trainers import TrainState, compute_dtype_of
 
 
 def rl_preprocess(model: SwinWNet, images: torch.Tensor):
@@ -66,7 +77,7 @@ def rl_reward(model: SwinWNet, qwrapper: Qwrapper, norm_lr, skips, alpha, params
         denorm_pred = denormalize_piecewise(sr_out, params_hr)[:, 0:1]
         pred_spec = qwrapper.rebin(denorm_pred)
         true_spec = qwrapper.rebin(seg_images[:, 0:1])
-        m = diffraction_metrics_device(pred_spec, true_spec, qwrapper.centers)
+        m = diffraction_metrics_device(pred_spec, true_spec, qwrapper.centers_on(pred_spec.device))
         total = (lambda_intensity * m["Integral Intensity"] + lambda_peak * m["Peak Intensity"]
                  + lambda_shape * m["Shape"])
     return -total, m
@@ -117,6 +128,55 @@ def rl_step(model: SwinWNet, policy: AlphaPolicy, model_opt: AdamW, policy_opt: 
     }
 
 
+@dataclasses.dataclass(eq=False)
+class RLState:
+    """The JAX `RLState`: the model's and the policy's `TrainState`s and
+    `rng`, the generator the step draws its noise from (the JAX PRNG key)."""
+
+    model: TrainState
+    policy: TrainState
+    rng: torch.Generator
+
+
+def _rl_state_tensors(state: RLState, *_):
+    """What a step reads and updates in place besides the two modules: both
+    optimizers' counts and moments."""
+    return [*state.model.opt_state.tensors(), *state.policy.opt_state.tensors()]
+
+
+def draw_noise(rng: torch.Generator, batch: int, device) -> torch.Tensor:
+    """A step's action noise, [batch, 1] standard normal from `rng`."""
+    return torch.randn((batch, 1), generator=rng, device=device)
+
+
+def make_rl_train_step(model: SwinWNet, policy: AlphaPolicy, model_tx: AdamW, policy_tx: AdamW,
+                       qwrapper: Qwrapper, lambda_rec: float = 10.0, lambda_intensity: float = 2.0,
+                       lambda_peak: float = 1.0, lambda_shape: float = 0.5, compute_dtype=None) -> Callable:
+    """One RL step as a program: `step(state, images) -> (state, metrics)`
+    with `images` [B, 1|2, H, W] (numpy or a tensor) and the nine metrics
+    of `rl_step`. `model_tx` and `policy_tx` are the optimizers the state
+    was created with (the updates run on `state.model.opt_state` and
+    `state.policy.opt_state`); `compute_dtype` (None: the model's own) is
+    the JAX `_with_compute_dtype`, under which the forwards and both
+    backwards run. The state is updated in place and returned."""
+    lambdas = dict(lambda_rec=lambda_rec, lambda_intensity=lambda_intensity, lambda_peak=lambda_peak,
+                   lambda_shape=lambda_shape)
+
+    def run(state: RLState, images, noise):
+        with compute_dtype_of(model, compute_dtype):
+            return rl_step(model, policy, state.model.opt_state, state.policy.opt_state, qwrapper, images, noise,
+                           **lambdas)
+
+    program = Program(run, modules=(model, policy), state=_rl_state_tensors)
+
+    def step(state: RLState, images):
+        device = next(model.parameters()).device
+        images = torch.as_tensor(images).to(device=device, dtype=torch.float32)
+        return state, program(state, images, draw_noise(state.rng, images.shape[0], device))
+
+    return step
+
+
 class RLTrainer:
     """Epoch loop mirroring the reference API (RL_finetuning_pipline.py:272-307),
     in place on `model` and `policy`, on the model's device. `train_loader`
@@ -149,18 +209,27 @@ class RLTrainer:
         self.lambdas = dict(lambda_rec=lambda_rec, lambda_intensity=lambda_intensity, lambda_peak=lambda_peak,
                             lambda_shape=lambda_shape)
         # reference optimizers: Adam 1e-4 policy / 1e-5 model (:118-125)
-        self.policy_opt = AdamW(policy.parameters(), policy_lr, weight_decay=0.0)
-        self.model_opt = masked_adamw(model, "rl", model_lr, weight_decay=0.0)
-        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        policy_tx = AdamW(policy.parameters(), policy_lr, weight_decay=0.0)
+        model_tx = masked_adamw(model, "rl", model_lr, weight_decay=0.0)
+        self.state = RLState(model=TrainState.create(model, model_tx), policy=TrainState.create(policy, policy_tx),
+                             rng=torch.Generator(device=self.device).manual_seed(seed))
+        self._step = make_rl_train_step(model, policy, model_tx, policy_tx, self.qwrapper, **self.lambdas,
+                                        compute_dtype=compute_dtype)
         self.history = []
 
+    @property
+    def policy_opt(self) -> AdamW:
+        return self.state.policy.opt_state
+
+    @property
+    def model_opt(self) -> AdamW:
+        return self.state.model.opt_state
+
     def train_step(self, images) -> Dict[str, torch.Tensor]:
-        """One RL step on a numpy or tensor batch; noise from the trainer's generator."""
-        images = torch.as_tensor(images).to(device=self.device, dtype=torch.float32)
-        noise = torch.randn((images.shape[0], 1), generator=self.generator, device=self.device)
-        with compute_dtype_of(self.model, self.compute_dtype):
-            return rl_step(self.model, self.policy, self.model_opt, self.policy_opt, self.qwrapper,
-                           images, noise, **self.lambdas)
+        """One RL step on a numpy or tensor batch, through the step program;
+        noise from the state's generator."""
+        self.state, metrics = self._step(self.state, images)
+        return metrics
 
     def train_epoch(self) -> Dict[str, float]:
         agg: Dict[str, float] = {}

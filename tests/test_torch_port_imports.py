@@ -7,7 +7,8 @@ spec, takes a dropout step, a remat step and a shifted level, and runs the
 data-parallel helpers and a one-rank gloo dry run, and runs the quality
 recipe at a tiny size, and imports the benchmark and `entry`, and runs the
 compiled programs (`core.graphs`: the three inference factories, `TrainState`
-and every step and eval factory), with jax, flax, optax,
+and every step and eval factory, the baselines' pipelines, `RLState` and
+`make_rl_train_step`), with jax, flax, optax,
 orbax and the JAX package refused by an import hook; and its entry points
 never quietly fall back to the CPU."""
 
@@ -141,6 +142,15 @@ for step, ev in ((train.make_stage1_step(m, tx, train.combined_loss), train.make
     state, out = step(state, *batch)
     assert state.opt_state is tx and ev(*batch) is not None
 assert int(state.step) == 4
+assert pipelines.make_segmentation_fn(unet).program.num_graphs == 0 and pipelines.make_sr_fn(sr).program is not None
+mtx, ptx = train.masked_adamw(m, "rl", 1e-5, weight_decay=0.0), train.AdamW(policy.parameters(), 1e-4, weight_decay=0.0)
+rl_state = train.RLState(train.TrainState.create(m, mtx), train.TrainState.create(policy, ptx),
+                         torch.Generator().manual_seed(0))
+rl_step = train.make_rl_train_step(m, policy, mtx, ptx, physics.Qwrapper(fixed_centers=np.linspace(0.05, 7.49, 160),
+                                                                          device="cpu"))
+rl_state, metrics = rl_step(rl_state, torch.rand(2, 1, 20, 30) * 1e3)
+assert int(rl_state.model.step) == int(rl_state.policy.step) == 1 and len(metrics) == 9
+assert callable(parallel.data_parallel) and physics.peaks.max_candidates(1241) == 620
 bad = [n for n in sys.modules if n.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "swinwnet_tpu")]
 assert not bad, bad
 print("ok")
