@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 1. builds the fused Swin-block kernels (ops/csrc/swin_block.cu) with nvcc and
-   checks in its SASS (cuobjdump) that the tensor-core body has HMMA
-   instructions and the fp32-FMA body none;
+   checks in its SASS (cuobjdump) that every instance of the Hopper body has
+   wgmma (HGMMA) and a TMA or bulk-copy load (UTMALDG, UBLKCP), and the
+   fp32-FMA body none of these nor HMMA;
 2. holds each kernel against its plain PyTorch version on the card, in bf16
    and fp32: `fused_swin_block_cst` at the five shapes the serving pipeline
    gives it, the five the RL step's half-size upscale gives it at B=4
@@ -14,9 +15,10 @@
    (row-major) at every signature the gate sends to it with fused_deep in fp32 and with
    one window, one fewer and one more than a CTA takes,
    `fused_swin_block_wide` at its four on-path shapes, each also at a window
-   count no CTA size divides; the bf16 tensor-core body of cst and wide at
+   count no CTA size divides; the bf16 Hopper body of cst and wide at
    every on-path shape with all weights stored [out, in] and all [in, out],
-   at one window fewer, as many and one more than its CTA takes, and with
+   at one window fewer, as many and one more than a batch, at a count whose
+   ragged last batch is the second its persistent CTA takes, and with
    the output over the input; and the differentiable block's gradients
    against autograd through the plain fp32 reference, per layout;
 3. serving: three [4, 2, 250, 480] requests through SwinWNetInference at the
@@ -606,8 +608,15 @@ def in_out_args(args):
     return args
 
 
+def second_stage_windows(plan):
+    """A window count whose last, ragged batch is the second its CTA takes:
+    the persistent grid is as many CTAs as fit the card at once."""
+    ctas = plan.min_ctas * torch.cuda.get_device_properties(0).multi_processor_count
+    return plan.WB * (ctas + 5) + max(1, plan.WB // 2)
+
+
 def check_tensor_cores(gen):
-    """The bf16 tensor-core body (cst and wide, C <= 96) at every on-path
+    """The bf16 Hopper body (cst and wide, C <= 96) at every on-path
     shape with all four weights stored [out, in] and all [in, out]; at one
     window fewer, as many and one more than its CTA takes (cst with a random
     pad mask); and with the output written over the input (the launcher
@@ -618,10 +627,12 @@ def check_tensor_cores(gen):
     shapes = [("cst", *lv[:4]) for lv in LEVELS] + [("wide", *lv) for lv in WIDE_LEVELS]
     for entry, name, C, nH, grid in shapes:
         plan = sb.kernel_plan(C, nH, bf16)
-        if plan.body == 0:
-            raise SystemExit(f"{entry} at C={C} nH={nH} does not take the tensor-core body: {plan}")
+        if plan.body != 1:
+            raise SystemExit(f"{entry} at C={C} nH={nH} does not take the Hopper body: {plan}")
         xt, args, mask = level_args(C, nH, grid, 1, bf16, gen)
-        ragged = sorted({plan.WB - 1, plan.WB, plan.WB + 1} - {0})
+        # one window fewer, as many and one more than a batch; and a count whose
+        # last batch is ragged and the second of its CTA (stage 1 of the pipeline)
+        ragged = sorted({plan.WB - 1, plan.WB, plan.WB + 1} - {0}) + [second_stage_windows(plan)]
         cases = [(grid, mask, "[out, in]"), (grid, mask, "[in, out]")]
         cases += [((5, 5 * Wt), None, ("[out, in]", "[in, out]")[i % 2]) for i, Wt in enumerate(ragged)]
         for g, m, order in cases:
@@ -669,29 +680,41 @@ def check_tensor_cores(gen):
     return worst
 
 
-def sass_hmma(lib):
-    """HMMA instructions per kernel instance in the built library's SASS
-    (cuobjdump), as {mangled name: count}."""
+SASS_OPS = ("HMMA", "HGMMA", "UTMALDG", "UBLKCP")
+
+
+def sass_ops(lib):
+    """Tensor-core (HMMA: mma.sync, HGMMA: wgmma) and TMA or bulk-copy load
+    (UTMALDG, UBLKCP) instructions per kernel instance in the built
+    library's SASS (cuobjdump), as {mangled name: {op: count}}."""
     from torch.utils.cpp_extension import CUDA_HOME
 
     res = subprocess.run([f"{CUDA_HOME}/bin/cuobjdump", "-sass", str(lib)], capture_output=True, text=True, check=True)
     counts = {}
     for part in res.stdout.split("Function : ")[1:]:
         name = part.split(None, 1)[0]
-        counts[name] = counts.get(name, 0) + part.count("HMMA")
+        got = counts.setdefault(name, dict.fromkeys(SASS_OPS, 0))
+        for line in part.splitlines():
+            words = line.replace(";", " ").split()
+            for op in SASS_OPS:
+                got[op] += any(w == op or w.startswith(op + ".") for w in words)
     return counts
 
 
 def check_sass(lib):
-    """The tensor-core body's SASS has HMMA instructions; the fp32-FMA
-    body's instances have none."""
-    counts = sass_hmma(lib)
-    mma = {k: v for k, v in counts.items() if "swin_block_mma_kernel" in k}
+    """The bf16 tensor-core instances (the Hopper body) have wgmma (HGMMA)
+    and a TMA or bulk-copy load (UTMALDG or UBLKCP); the fp32-FMA body's
+    instances have no tensor-core or TMA instruction."""
+    counts = sass_ops(lib)
+    hopper = {k: v for k, v in counts.items() if "swin_block_hopper_kernel" in k}
     fma = {k: v for k, v in counts.items() if "swin_block_kernel" in k}
-    print(f"  SASS: tensor-core body HMMA {list(mma.values())}; fp32-FMA body instances HMMA "
-          f"{sorted(fma.values())} ({len(fma)} instances)")
-    if not mma or min(mma.values()) == 0 or max(fma.values(), default=0) > 0:
-        raise SystemExit("the tensor-core body has no HMMA, or the fp32-FMA body has some")
+    print(f"  SASS: Hopper body instances {[tuple(v[op] for op in SASS_OPS) for v in hopper.values()]} "
+          f"({', '.join(SASS_OPS)}); fp32-FMA body instances "
+          f"{sorted(tuple(v[op] for op in SASS_OPS) for v in fma.values())} ({len(fma)} instances)")
+    if not hopper or any(v["HGMMA"] == 0 or v["UTMALDG"] + v["UBLKCP"] == 0 for v in hopper.values()):
+        raise SystemExit("a Hopper body instance has no HGMMA or no TMA / bulk-copy load")
+    if not fma or any(sum(v.values()) for v in fma.values()):
+        raise SystemExit("an fp32-FMA body instance has tensor-core or TMA instructions")
 
 
 def check_rowmajor(dtype, gen):
@@ -841,7 +864,7 @@ def profile_call(fn, what, quiet=False):
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
     PROFILES[what] = (wall_ms, busy)
-    fused = [r for r in rows if "swin_block_kernel" in r[0] or "swin_block_mma_kernel" in r[0]]
+    fused = [r for r in rows if "swin_block_kernel" in r[0] or "swin_block_hopper_kernel" in r[0]]
     print(f"  profile of {what}: wall {wall_ms:.1f} ms, device busy {busy:.1f} ms "
           f"({100 * busy / wall_ms:.1f}%), {len(rows)} kernel kinds; the Swin-block kernels "
           f"{sum(r[1] for r in fused):.1f} ms in {sum(r[2] for r in fused)} launches, "
@@ -2970,11 +2993,13 @@ def plan_text(C, nH, dtype, round_qkv=True):
     """A launch's plan, which body it takes, its registers and CTAs an SM."""
     p = sb.kernel_plan(C, nH, dtype, round_qkv)
     regs, ctas = sb.kernel_info(C, nH, dtype, round_qkv)
-    body = ("fp32-FMA body", "tensor cores, two weight slots", "tensor cores, weights resident")[p.body]
-    rows = f"{p.mp} rows padded" if p.body else f"tile {p.KC}x{p.OT} 5x{p.CN} a thread"
-    planned = f" (planned {p.min_ctas})" if p.body else ""
-    return (f"{body}: WB={p.WB} G={p.G} HC={p.HC} {rows}, {p.smem_bytes} B shared, {regs} registers, "
-            f"{ctas} CTAs an SM{planned}")
+    if p.body == 1:
+        weights = f"a ring of {p.ring} weight slots" if p.ring else "weights resident"
+        return (f"Hopper body: WB={p.WB} G={p.G}{'x3 parts' if p.parts == 3 else ''} HC={p.HC} {p.mp} rows padded, "
+                f"{p.nwg} consumer warpgroups + a window and a weight producer warp, {weights}, swizzle spans "
+                f"{p.spans[:2]}, {p.smem_bytes} B shared, {regs} registers, {ctas} CTAs an SM (planned {p.min_ctas})")
+    return (f"fp32-FMA body: WB={p.WB} G={p.G} HC={p.HC} tile {p.KC}x{p.OT} 5x{p.CN} a thread, {p.smem_bytes} B "
+            f"shared, {regs} registers, {ctas} CTAs an SM")
 
 
 def time_levels(dtype, gen):

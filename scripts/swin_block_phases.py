@@ -16,9 +16,12 @@ pass them. Per shape it prints the kernel's time, its plan, its registers
 and CTAs an SM (the occupancy calculator), and the mean cycles per window
 batch (one batch a CTA, or several for a CTA that walks batches) of each
 phase, the products' cycles split into copy start, copy wait, barrier, the
-FMA or MMA loop and epilogue; for the fp32-FMA body also the FFMA rate
-inside the loops. The counters slow the kernel by a few percent;
-chip_smoke.py times the kernel without them.
+FMA loop and epilogue, and the FFMA rate inside the loops. The counters slow the kernel by a few percent;
+chip_smoke.py times the kernel without them. The bf16 launches run the
+Hopper body, whose counters are its consumer thread 0's phases (window wait,
+load + LN1, weight wait, wgmma, epilogues, named-barrier waits, attention,
+output staging) and its two producer warps' (waits, stores, TMA requests),
+printed per window batch.
 """
 
 from __future__ import annotations
@@ -38,7 +41,12 @@ from swinwnet_tpu_torch.ops import swin_block as sb  # noqa: E402
 
 PHASES = ["load", "LN1", "qkv", "attention", "proj", "residual", "LN2", "fc1", "fc2", "store"]
 IN_PRODUCTS = ["copy start", "copy wait", "barrier", "FMA loop", "epilogue"]
-IN_MMA_PRODUCTS = ["copy start", "copy wait", "barrier", "MMA loop", "epilogue"]
+# the Hopper body's counters (HPHASE in the .cu): consumer thread 0's phases,
+# then lane 0 of the window producer warp, then of the weight producer
+HOPPER_CONSUMER = ["window wait", "load + LN1", "weight wait", "wgmma", "qkv epilogue",
+                   "barriers", "attention", "proj epilogue + LN2", "fc1 epilogue (GELU)", "output staging"]
+HOPPER_WINDOW = ["wait for a batch's output", "store", "next load"]
+HOPPER_WEIGHT = ["wait for a free slot", "TMA requests"]
 
 
 def measure(lib, counters, tag, name, run, C, nH, Wt, dtype, round_qkv):
@@ -52,23 +60,34 @@ def measure(lib, counters, tag, name, run, C, nH, Wt, dtype, round_qkv):
         raise SystemExit("could not read the phase counters")
     plan = sb.kernel_plan(C, nH, dtype, round_qkv)
     regs, ctas_sm = sb.kernel_info(C, nH, dtype, round_qkv, lib)
-    body = getattr(plan, "body", 0)
     batches = -(-Wt // plan.WB)
     per = [c / batches for c in counters]
+    if plan.body == 1:
+        # a consumer's cycles per batch, and the producers' per batch of the CTA
+        total = sum(per[:10])
+        weights = f"ring of {plan.ring}" if plan.ring else "weights resident"
+        print(f"  {tag:4s} {name:13s} C={C:3d} nH={nH:2d} Wt={Wt:5d} {ms:.4f} ms  WB={plan.WB} G={plan.G} "
+              f"HC={plan.HC} {plan.mp} rows, {plan.nwg} consumer warpgroups, {weights}, {plan.smem_bytes} B shared, "
+              f"{regs} registers, {ctas_sm} CTAs an SM, {batches} window batches, {total:.0f} cycles a batch")
+        print("    consumer: " + "  ".join(f"{n} {100 * c / total:.1f}%" for n, c in zip(HOPPER_CONSUMER, per)))
+        print("    window producer, cycles a batch: " + "  ".join(
+            f"{n} {c:.0f}" for n, c in zip(HOPPER_WINDOW, per[10:13])))
+        if plan.ring:
+            print("    weight producer, cycles a batch: " + "  ".join(
+                f"{n} {c:.0f}" for n, c in zip(HOPPER_WEIGHT, per[13:15])))
+        return
     total = sum(per[:10])
     print(f"  {tag:4s} {name:13s} C={C:3d} nH={nH:2d} Wt={Wt:5d} {ms:.4f} ms  "
-          f"WB={plan.WB} G={plan.G} HC={plan.HC} {plan.smem_bytes} B shared, {'mma' if body else 'fma'} body, "
+          f"WB={plan.WB} G={plan.G} HC={plan.HC} {plan.smem_bytes} B shared, fma body, "
           f"{regs} registers, {ctas_sm} CTAs an SM, {batches} window batches, {total:.0f} cycles a batch")
     print("    " + "  ".join(f"{n} {100 * c / total:.1f}%" for n, c in zip(PHASES, per)))
-    labels = IN_MMA_PRODUCTS if body else IN_PRODUCTS
-    print("    in the products: " + "  ".join(f"{n} {100 * c / total:.1f}%" for n, c in zip(labels, per[10:])))
-    if not body:
-        # FFMAs one warp executes in the loops of a CTA: 12 C^2 per row, over the
-        # threads that hold a register tile; two such warps share a scheduler
-        tiles = 5 * plan.WB * (plan.OT // plan.CN)
-        ffma_per_thread = 25 * plan.WB * 12 * C * C / tiles
-        print(f"    FFMA per cycle and warp inside the loops {ffma_per_thread / per[13]:.3f} "
-              f"({plan.threads // 128} warps a scheduler)")
+    print("    in the products: " + "  ".join(f"{n} {100 * c / total:.1f}%" for n, c in zip(IN_PRODUCTS, per[10:15])))
+    # FFMAs one warp executes in the loops of a CTA: 12 C^2 per row, over the
+    # threads that hold a register tile; two such warps share a scheduler
+    tiles = 5 * plan.WB * (plan.OT // plan.CN)
+    ffma_per_thread = 25 * plan.WB * 12 * C * C / tiles
+    print(f"    FFMA per cycle and warp inside the loops {ffma_per_thread / per[13]:.3f} "
+          f"({plan.threads // 128} warps a scheduler)")
 
 
 def main() -> int:

@@ -97,11 +97,11 @@ def bind(path: Path):
     lib.swin_block_launch.argtypes = (
         [I, I, P, L, L, L, P, L, L, L, P, L, L]
         + [P] * 13
-        + [I] * 17
+        + [I] * 21
         + [P]
     )
     lib.swin_block_launch.restype = I
-    lib.swin_block_info.argtypes = [I] * 7 + [ctypes.POINTER(I)] * 2
+    lib.swin_block_info.argtypes = [I] * 8 + [ctypes.POINTER(I)] * 2
     lib.swin_block_info.restype = I
     return lib
 
@@ -126,19 +126,28 @@ class KernelPlan(NamedTuple):
     WB: int  # windows a CTA: M = 25 * WB rows
     G: int  # heads per qkv/attention group
     HC: int  # MLP hidden columns per chunk
-    KC: int  # k extent of a staged weight tile
-    OT: int  # output columns of a staged weight tile
-    CN: int  # output columns a thread holds (its register tile is 5 x CN)
+    KC: int  # k extent of a staged weight tile (the fp32-FMA body)
+    OT: int  # output columns of a staged weight tile (the fp32-FMA body)
+    CN: int  # output columns a thread holds, its register tile 5 x CN (the Hopper body: its widest product, 48 or 96)
     threads: int
     smem_bytes: int
-    lda: int  # row stride of the two [M, C] buffers, floats (bf16 elements in a tensor-core plan)
-    ldq: int  # row stride of the qkv / hidden chunk, floats (bf16 elements in a tensor-core plan)
+    lda: int  # row stride of the two [M, C] buffers, floats (the Hopper body: of A1 and A2, bf16 elements)
+    ldq: int  # row stride of the qkv / hidden chunk, floats (the Hopper body: of its q|k|v rows, bf16 elements)
     offsets: tuple  # byte offsets of ys, os, the chunk and the weight ring
-    # (tensor-core plan: of the trunk, the two operand buffers, the chunk and the weights)
-    body: int = 0  # 0: the fp32-FMA body; 1: tensor cores, two weight slots; 2: tensor cores, weights resident
-    mp: int = 0  # tensor-core plan: rows a CTA padded to 16
-    ldt: int = 0  # tensor-core plan: row stride of the fp32 trunk, floats
-    min_ctas: int = 1  # tensor-core plan: CTAs an SM it counts on (2 or 3: 128 or 80 registers a thread)
+    # (the Hopper body: of the fp32 parameters, the rel-pos bias, two window stages, A1, A2, the chunk, the weights)
+    body: int = 0  # 0: the fp32-FMA body; 1: the Hopper body (wgmma, TMA, warp-specialised)
+    mp: int = 0  # the Hopper body: rows a batch padded to 64
+    min_ctas: int = 1  # CTAs an SM the plan counts on (the Hopper body: 1 or 2)
+    # the Hopper body: consumer warpgroups (rows / 64), weight ring
+    # slots (0: all weights resident), qkv parts per head group (1, or 3 when
+    # a group's q|k|v is wider than the body holds), and the swizzle spans:
+    # (A1 and A2, the hidden chunk, then [out, in] and [in, out] weights of
+    # qkv, proj, fc1 and fc2)
+    nwg: int = 0
+    ring: int = 0
+    parts: int = 1
+    spans: tuple = ()
+    variant: int = 0  # the instance that fixes this shape's widths (hopper_variant), 0: read at run time
 
 
 def _smem_layout(C, hd, WB, G, HC, KC, OT, itemsize):
@@ -152,9 +161,9 @@ def _smem_layout(C, hd, WB, G, HC, KC, OT, itemsize):
     return offsets[-1] + 2 * stage * itemsize, lda, ldq, offsets
 
 
-# bytes of shared memory a CTA may take for two or three to share an SM's 228 KB (1 KB each reserved)
-SMEM_CTAS = {2: 115712, 3: 76800}
-MMA_MAX_C = 96  # the widest bf16 level the tensor-core body takes (the bf16 gate's cap)
+# bytes of shared memory a CTA may take for two to share an SM's 228 KB (1 KB each reserved)
+SMEM_TWO_CTAS = 115712
+MMA_MAX_C = 96  # the widest bf16 level the Hopper body takes (the bf16 gate's cap)
 
 
 def _round_up(n, m):
@@ -167,69 +176,164 @@ def _odd_units(n):
     return n if (n // 8) % 2 else n + 8
 
 
-def mma_jobs(C, num_heads, G, HC):
-    """(K, O) of the products of a window batch in the tensor-core body, in
-    order: a qkv product per head group, proj, then fc1 and fc2 per hidden
-    chunk."""
+# ---------------------------------------------------------------------------
+# The Hopper body's plan and its shared-memory layout, mirroring h_layout,
+# h_job, tile_off and window_map in csrc/swin_block.cu
+# ---------------------------------------------------------------------------
+
+H_ALIGN = 1024  # operand buffers start on the 128-byte swizzle's period
+H_MAX_RING = 8  # weight ring slots at most
+
+
+def swizzle(off: int, span: int) -> int:
+    """The byte offset `off` after the span-byte swizzle (TMA's SWIZZLE_32B,
+    64B, 128B; wgmma's layout types 3, 2, 1): its 16-byte unit index XOR
+    the 128-byte row index, as many bits as the span has units past the
+    first."""
+    return off ^ (((off >> 7) & (span // 16 - 1)) << 4)
+
+
+def tile_offset(row: int, col: int, rows: int, span: int) -> int:
+    """Byte offset of bf16 element (row, col) of a tile of `rows` rows whose
+    contiguous dimension is col, kept as blocks of `span` bytes of every row
+    (block b holds columns b * span / 2 .., a row at `span` bytes), swizzled:
+    what TMA writes for a box {span / 2, rows} and wgmma reads through a
+    descriptor with SBO = 8 * span."""
+    b = 2 * col
+    return swizzle((b // span) * rows * span + row * span + b % span, span)
+
+
+def span_of(nbytes: int) -> int:
+    """The widest swizzle span that divides a row of `nbytes` (a multiple of 32)."""
+    return 128 if nbytes % 128 == 0 else 64 if nbytes % 64 == 0 else 32
+
+
+def hopper_jobs(C, num_heads, G, HC, parts):
+    """The products of a window batch in the Hopper body, in order, as
+    (weight, K, O, run): nH/G head groups of qkv (in `parts` of q, k, v
+    each when 3), proj, then fc1 and fc2 per hidden chunk; `run` is the
+    length of a run of consecutive stored output columns."""
+    GD = G * (C // num_heads)
+    qkv = [("qkv", C, 3 * GD, GD)] if parts == 1 else [("qkv", C, GD, GD)] * 3
+    mlp = [("fc1", C, HC, HC), ("fc2", HC, C, C)] * (4 * C // HC)
+    return qkv * (num_heads // G) + [("proj", C, C, C)] + mlp
+
+
+def hopper_weight_bytes(K, O, oi: bool) -> int:
+    """Bytes of a product's weights: [out, in] storage as the K-major
+    [round8(O)][round16(K)], [in, out] as the MN-major [round16(K)][round16(O)]."""
+    return 2 * _round_up(K, 16) * (_round_up(O, 8) if oi else _round_up(O, 16))
+
+
+def hopper_weight_span(K, O, oi: bool) -> int:
+    return span_of(2 * (_round_up(K, 16) if oi else _round_up(O, 16)))
+
+
+def _hopper_layout(C, num_heads, WB, G, HC, parts, mp, ring):
+    """(bytes, ldq, offsets) of a Hopper plan as h_layout lays it out from a
+    1024-aligned base: the mbarriers, the fp32 parameters, the rel-pos bias,
+    two window stages, A1, A2, the chunk (q|k|v rows of ldq, or the [mp, HC] hidden
+    chunk), and the weights: every product's (ring 0) or `ring` slots of the
+    largest."""
+    M, Kpc = WINDOW_TOKENS * WB, _round_up(C, 16)
+    ldq = _odd_units(3 * G * (C // num_heads))
+    chunk_rows = _round_up(max(mp, M + 7), 8)
+    a = lambda n: _round_up(n, H_ALIGN)
+    sizes = [H_ALIGN, a(13 * C * 4), a(num_heads * WINDOW_TOKENS ** 2 * 4), a(M * C * 2), a(M * C * 2),
+             a(mp * Kpc * 2), a(mp * Kpc * 2), a(max(chunk_rows * ldq * 2, mp * HC * 2))]
+    offsets = tuple(sum(sizes[:i]) for i in range(len(sizes) + 1))[1:]  # parameters .. weights
+    slots = [a(max(hopper_weight_bytes(K, O, True), hopper_weight_bytes(K, O, False)))
+             for _, K, O, _ in hopper_jobs(C, num_heads, G, HC, parts)]
+    weights = ring * max(slots) if ring else sum(slots)
+    return H_ALIGN + offsets[-1] + weights, ldq, offsets
+
+
+def _hopper_heads(C, num_heads, HC, maxn, streamed):
+    """(G, parts): the widest head group whose q|k|v the chunk holds (3 G hd
+    <= max(HC, 3 hd)) in one product of at most maxn columns, else in three
+    of G hd each; streamed weights need G hd a multiple of 16 (TMA boxes)."""
     hd = C // num_heads
-    return ([(C, 3 * G * hd)] * (num_heads // G) + [(C, C)] + [(C, HC), (HC, C)] * (4 * C // HC))
+    heads = [g for g in range(1, num_heads + 1) if num_heads % g == 0 and (not streamed or g * hd % 16 == 0)]
+    one = [g for g in heads if 3 * g * hd <= min(max(HC, 3 * hd), maxn)]
+    if one:
+        return max(one), 1
+    three = [g for g in heads if g * hd <= maxn and 3 * g * hd <= max(HC, 3 * hd)]
+    if three:
+        return max(three), 3
+    raise ValueError(f"no head group of the Hopper body at C={C}, num_heads={num_heads}")
 
 
-def mma_weight_elems(K, O):
-    """bf16 elements a product's staged weights take: K padded to 16, O to
-    8, rows an odd number of 16-byte units, in either order."""
-    Kp, Op = _round_up(K, 16), _round_up(O, 8)
-    return max(Op * _odd_units(Kp), Kp * _odd_units(Op))
+# the Hopper body's instances with fixed widths, as hopper_instance in the
+# .cu builds them: (C, a qkv product's output columns, HC) -> variant; one
+# for each bf16 serving level's width
+HOPPER_VARIANTS = {(12, 36, 48): 1, (24, 24, 48): 2, (48, 48, 48): 3, (96, 96, 96): 4}
 
 
-def _mma_layout(C, num_heads, WB, G, HC, body):
-    """(bytes, mp, ldt, ldb, ldh, offsets) of a tensor-core plan, as the
-    kernel lays it out (mma_layout in the .cu): the fp32 trunk [M, C + 4], two
-    bf16 operand buffers [mp, ldb], the bf16 chunk [mp, ldh], and the weights:
-    every product's (body 2) or two slots of the largest (body 1)."""
-    M = WINDOW_TOKENS * WB
-    mp, ldt = _round_up(M, 16), C + 4
-    ldb = _odd_units(_round_up(C, 16))
-    ldh = _odd_units(max(_round_up(3 * G * (C // num_heads), 8), HC))
-    sizes = [mma_weight_elems(K, O) for K, O in mma_jobs(C, num_heads, G, HC)]
-    welems = sum(sizes) if body == 2 else 2 * max(sizes)
-    offsets = (0, 4 * M * ldt)
-    offsets += (offsets[-1] + 2 * mp * ldb,)
-    offsets += (offsets[-1] + 2 * mp * ldb,)
-    offsets += (offsets[-1] + 2 * mp * ldh,)
-    return offsets[-1] + 2 * welems, mp, ldt, ldb, ldh, offsets
+def hopper_variant(C, num_heads, G, HC, parts) -> int:
+    GD = G * (C // num_heads)
+    return HOPPER_VARIANTS.get((C, 3 * GD if parts == 1 else GD, HC), 0)
 
 
-def _mma_plan(C, num_heads):
-    """The tensor-core body's plan: hidden chunks of the widest multiple of
-    16 up to max(C, 48) that cuts 4C, head groups whose q|k|v are no wider,
-    all weights resident at C <= 48 (body 2; else two slots, body 1, which
-    needs C a multiple of 16: the slots are reused, so no K may have a pad),
-    and the windows a CTA and CTAs an SM (2 or 3, as shared memory allows) that keep
-    the most useful rows on an SM: CTAs * M * (M / Mp), Mp being M padded to
-    16 (fewer CTAs, then fewer windows, on a tie)."""
-    hd = C // num_heads
+def _hopper_plan(C, num_heads):
+    """The Hopper body's plan: 125 rows a batch in two consumer warpgroups of
+    64 (WB = 5), or 250 in four (WB = 10) where a batch of 5 windows is not a
+    whole number of 16-byte units; the widest hidden chunk of a multiple of
+    16 up to max(C, 48); weights resident at C <= 48, else a ring of as many
+    slots as shared memory holds; two CTAs an SM where they fit."""
+    maxn = 48 if C <= 48 else 96
+    WB = 5 if (5 * C) % 8 == 0 else 10
+    mp = _round_up(WINDOW_TOKENS * WB, 64)
+    nwg = mp // 64
     HC = max(h for h in range(16, 4 * C + 1, 16) if (4 * C) % h == 0 and h <= max(C, 48))
-    G = max(g for g in range(1, num_heads + 1) if num_heads % g == 0 and 3 * g * hd <= max(HC, 3 * hd))
-    body = 2 if C <= 48 else 1
-    best, best_score = None, 0.0
-    for ctas in (2, 3):
-        for WB in range(1, _MAX_WB + 1):
-            nbytes, mp, ldt, ldb, ldh, offsets = _mma_layout(C, num_heads, WB, G, HC, body)
-            M = WINDOW_TOKENS * WB
-            score = ctas * M * M / mp
-            if nbytes <= SMEM_CTAS[ctas] and score > best_score:
-                best_score = score
-                best = KernelPlan(WB, G, HC, 16, 8, 0, _THREADS, nbytes, ldb, ldh, offsets, body, mp, ldt, ctas)
-    if best is None:
-        raise ValueError(f"no tensor-core plan fits two CTAs an SM at C={C}, num_heads={num_heads}")
-    return best
+    streamed = C > 48
+    G, parts = _hopper_heads(C, num_heads, HC, maxn, streamed)
+    ring = 0
+    if streamed:
+        fits = [r for r in range(2, H_MAX_RING + 1)
+                if _hopper_layout(C, num_heads, WB, G, HC, parts, mp, r)[0] <= SMEM_MAX]
+        if not fits:
+            raise ValueError(f"no weight ring of the Hopper body fits at C={C}, num_heads={num_heads}")
+        ring = max(fits)
+    nbytes, ldq, offsets = _hopper_layout(C, num_heads, WB, G, HC, parts, mp, ring)
+    if nbytes > SMEM_MAX:
+        raise ValueError(f"the Hopper body does not fit shared memory at C={C}, num_heads={num_heads}")
+    ctas = 2 if maxn == 48 and nwg == 2 and nbytes <= SMEM_TWO_CTAS else 1
+    Kpc = _round_up(C, 16)
+    first = {}
+    for w, K, O, _ in hopper_jobs(C, num_heads, G, HC, parts):
+        first.setdefault(w, (K, O))
+    spans = (span_of(2 * Kpc), span_of(2 * HC)) + tuple(
+        hopper_weight_span(*first[w], oi) for w in ("qkv", "proj", "fc1", "fc2") for oi in (True, False))
+    return KernelPlan(WB, G, HC, 16, 8, maxn, nwg * 128 + 64, nbytes, Kpc, ldq, offsets, 1, mp, ctas,
+                      nwg, ring, parts, spans, hopper_variant(C, num_heads, G, HC, parts))
+
+
+def io_route(t, WB: int) -> int:
+    """How the Hopper body moves the [C, N, Wt] view t's windows, as
+    window_map in the .cu checks it: 2 a TMA box [WB][N][C] (channels
+    contiguous, windows outermost), 3 a box [N][WB][C] (token slots
+    outermost), 4 a box [N][WB * C] (a window's channels right after the
+    last window's), 1 one bulk copy of the batch's contiguous bytes, 0
+    element by element (any other strides)."""
+    C, N, Wt = t.shape
+    sc, sn, sw = t.stride()
+    if t.data_ptr() % 16 == 0 and sc == 1:
+        if C % 8 == 0 and sn % 8 == 0 and sw % 8 == 0:
+            if sn >= C and sw >= N * sn:
+                return 2
+            if sw >= C and sn >= Wt * sw:
+                return 3
+        if sw == C and (WB * C) % 8 == 0 and WB * C <= 256 and sn % 8 == 0 and sn >= Wt * C:
+            return 4
+        if sn == C and sw == N * C and (WB * N * C) % 8 == 0:
+            return 1
+    return 0
 
 
 @functools.lru_cache(maxsize=None)
 def kernel_plan(C: int, num_heads: int, dtype: torch.dtype, round_qkv: bool = True) -> KernelPlan:
     """The kernel's plan for width C. bf16 with qkv rounded (the cst and wide
-    entries) at C <= 96 takes the tensor-core body (`_mma_plan`). Any other
+    entries) at C <= 96 takes the Hopper body (`_hopper_plan`). Any other
     launch takes the fp32-FMA body: as many windows a CTA as keep M * C near
     9600 elements (4 at C = 96, 2 at C = 192, 1 from C = 384), an output tile
     OT that gives every thread one 5 x CN register tile (5 * WB * OT / CN <=
@@ -241,7 +345,7 @@ def kernel_plan(C: int, num_heads: int, dtype: torch.dtype, round_qkv: bool = Tr
     if C <= 0 or C % num_heads or (C // num_heads) % 4:
         raise ValueError(f"the kernel takes a head width that is a multiple of 4, got C={C}, num_heads={num_heads}")
     if dtype == torch.bfloat16 and round_qkv and (C <= 48 or (C <= MMA_MAX_C and C % 16 == 0)):
-        return _mma_plan(C, num_heads)
+        return _hopper_plan(C, num_heads)
     itemsize = 4 if dtype == torch.float32 else 2
     hd = C // num_heads
     threads = _THREADS
@@ -271,7 +375,7 @@ def kernel_info(C: int, num_heads: int, dtype: torch.dtype, round_qkv: bool = Tr
     lib = lib or _load()
     regs, ctas = ctypes.c_int(0), ctypes.c_int(0)
     err = lib.swin_block_info(int(dtype == torch.bfloat16), int(round_qkv), plan.body, plan.min_ctas, plan.CN,
-                              plan.threads, plan.smem_bytes, ctypes.byref(regs), ctypes.byref(ctas))
+                              plan.threads, plan.smem_bytes, plan.variant, ctypes.byref(regs), ctypes.byref(ctas))
     if err != 0:
         raise RuntimeError(f"swin_block_info failed with code {err} (C={C}, nH={num_heads})")
     return regs.value, ctas.value
@@ -427,6 +531,7 @@ def _launch(entry, x_cnw, out_cnw, mask_nw, weights_oi, fp32_params, num_heads, 
     if any(t.data_ptr() % 16 for t in (*weights_oi, *fp32_params)):
         raise ValueError("the kernel's weights and fp32 parameters must be 16-byte aligned")
     orders = [_weight_order(w, name) for w, name in zip(weights_oi, _WEIGHT_NAMES[cst])]
+    io = (io_route(x_cnw, plan.WB), io_route(out_cnw, plan.WB)) if plan.body == 1 else (0, 0)
     lib = _load()
     mask_ptr, smn, smw = None, 0, 0
     if mask_nw is not None:
@@ -445,7 +550,7 @@ def _launch(entry, x_cnw, out_cnw, mask_nw, weights_oi, fp32_params, num_heads, 
             w2.data_ptr(), b2.data_ptr(),
             *orders, C, num_heads, Wt,
             plan.WB, plan.G, plan.HC, plan.KC, plan.OT, plan.CN, plan.threads, plan.smem_bytes, plan.body,
-            plan.min_ctas, stream,
+            plan.min_ctas, plan.ring, plan.parts, *io, stream,
         )
     if err != 0:
         raise RuntimeError(f"swin_block_launch failed with code {err} (C={C}, nH={num_heads}, Wt={Wt})")

@@ -277,7 +277,7 @@ TC_SHAPES = [(12, 3), (24, 3), (48, 3), (96, 6), (96, 3)]
 @pytest.mark.parametrize("stored", ["out_in", "in_out"])
 @pytest.mark.parametrize("C,nH", TC_SHAPES)
 def test_tensor_core_cst_at_ragged_window_counts(cuda, C, nH, stored):
-    """The bf16 tensor-core body through the cst entry, with a pad mask, at
+    """The bf16 Hopper body through the cst entry, with a pad mask, at
     window counts below, at and around its windows per CTA and at a prime,
     weights stored either way."""
     args, g = _cst_operands(cuda, C, nH, C + nH, stored)
@@ -298,7 +298,7 @@ def test_tensor_core_cst_at_ragged_window_counts(cuda, C, nH, stored):
 @pytest.mark.parametrize("linear_layout", [False, True])
 @pytest.mark.parametrize("C,nH", TC_SHAPES)
 def test_tensor_core_wide_at_ragged_window_counts(cuda, C, nH, linear_layout):
-    """The bf16 tensor-core body through the wide entry at window counts
+    """The bf16 Hopper body through the wide entry at window counts
     around its windows per CTA and at a prime, weights stored either way."""
     args, g = _operands(cuda, C, nH, torch.bfloat16, C + nH, linear_layout)
     for Wt in _window_counts(C, nH, torch.bfloat16, round_qkv=True):
@@ -306,6 +306,54 @@ def test_tensor_core_wide_at_ragged_window_counts(cuda, C, nH, linear_layout):
         out = sb.fused_swin_block_wide(x, *args, num_heads=nH)
         torch.cuda.synchronize()
         ref = sb.swin_block_wide_plain(x, *args, num_heads=nH)
+        tol = 2e-2 * ref.float().abs().max().item()
+        assert (out.float() - ref.float()).abs().max().item() <= tol, f"Wt={Wt}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", ["cst", "wide"])
+@pytest.mark.parametrize("C,nH", TC_SHAPES)
+def test_tensor_core_ragged_batch_in_the_second_stage(cuda, C, nH, entry):
+    """The Hopper body's pipeline: a window count whose last batch is ragged
+    and the second its persistent CTA takes (loaded into the second stage
+    while the first computes), and one a batch longer."""
+    plan = sb.kernel_plan(C, nH, torch.bfloat16)
+    assert plan.body == 1
+    ctas = plan.min_ctas * torch.cuda.get_device_properties(0).multi_processor_count
+    for Wt in (plan.WB * (ctas + 5) + max(1, plan.WB // 2), plan.WB * (ctas + 6) + max(1, plan.WB // 2)):
+        if entry == "cst":
+            args, g = _cst_operands(cuda, C, nH, C + nH + Wt, "in_out")
+            x = torch.randn(Wt, N, C, generator=g).to(torch.bfloat16).to(cuda).permute(2, 1, 0)
+            mask = (torch.rand(N, Wt, generator=g) > 0.3).float().to(cuda)
+            out = sb.fused_swin_block_cst(x, *args, num_heads=nH, pad_mask=mask)
+            ref = sb.swin_block_plain(x, *args, num_heads=nH, pad_mask=mask)
+        else:
+            args, g = _operands(cuda, C, nH, torch.bfloat16, C + nH + Wt, True)
+            x = torch.randn(N, Wt, C, generator=g).to(torch.bfloat16).to(cuda)
+            out = sb.fused_swin_block_wide(x, *args, num_heads=nH)
+            ref = sb.swin_block_wide_plain(x, *args, num_heads=nH)
+        torch.cuda.synchronize()
+        tol = 2e-2 * ref.float().abs().max().item()
+        assert (out.float() - ref.float()).abs().max().item() <= tol, f"Wt={Wt}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stored", ["out_in", "in_out"])
+@pytest.mark.parametrize("C,nH", [(4, 1), (16, 4), (32, 1), (40, 5), (64, 4), (80, 5), (96, 1), (96, 12)])
+def test_tensor_core_cst_at_other_widths(cuda, C, nH, stored):
+    """The Hopper body at widths no serving level has: the instance that
+    reads its widths at run time, or one that fixes them where they agree
+    (C = 96 with 1 or 12 heads), qkv in one product or three parts,
+    resident and streamed weights, stored either way."""
+    plan = sb.kernel_plan(C, nH, torch.bfloat16)
+    assert plan.body == 1 and plan.variant == (4 if C == 96 else 0)
+    args, g = _cst_operands(cuda, C, nH, C + nH, stored)
+    for Wt in (plan.WB + 1, 1201):
+        x = torch.randn(Wt, N, C, generator=g).to(torch.bfloat16).to(cuda).permute(2, 1, 0)
+        mask = (torch.rand(N, Wt, generator=g) > 0.3).float().to(cuda)
+        out = sb.fused_swin_block_cst(x, *args, num_heads=nH, pad_mask=mask)
+        torch.cuda.synchronize()
+        ref = sb.swin_block_plain(x, *args, num_heads=nH, pad_mask=mask)
         tol = 2e-2 * ref.float().abs().max().item()
         assert (out.float() - ref.float()).abs().max().item() <= tol, f"Wt={Wt}"
 

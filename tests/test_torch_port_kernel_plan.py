@@ -9,11 +9,18 @@ import pytest
 import torch
 
 from swinwnet_tpu_torch.ops.swin_block import (
+    H_ALIGN,
+    H_MAX_RING,
     SMEM_MAX,
-    SMEM_CTAS,
+    SMEM_TWO_CTAS,
     WINDOW_TOKENS,
+    hopper_jobs,
+    hopper_weight_bytes,
+    io_route,
     kernel_plan,
-    mma_jobs,
+    span_of,
+    swizzle,
+    tile_offset,
 )
 
 # (C, num_heads) of the on-path shapes: the channels-major kernel in serving,
@@ -33,42 +40,56 @@ def _units16(n):
     return n // 8
 
 
-def _check_mma_plan(p, C, nH):
-    """The tensor-core body's invariants (bf16, qkv rounded, C <= 96)."""
+def _check_hopper_plan(p, C, nH):
+    """The Hopper body's invariants (bf16, qkv rounded, C <= 96): 64-row
+    tiles, 227 KB, weights resident at C <= 48, spans that divide each
+    operand's row bytes, and the layout h_layout makes."""
     hd = C // nH
     M = WINDOW_TOKENS * p.WB
-    assert p.body == (2 if C <= 48 else 1)  # weights resident exactly when C <= 48
-    assert 1 <= p.WB <= 8 and p.mp % 16 == 0 and M <= p.mp < M + 16
-    assert nH % p.G == 0 and p.HC % 16 == 0 and (4 * C) % p.HC == 0
-    assert p.threads == 256
-    # two CTAs an SM (at most 113 KB of shared memory each) or three (75 KB)
-    assert p.min_ctas in (2, 3) and p.smem_bytes <= SMEM_CTAS[p.min_ctas] and 2 * (SMEM_CTAS[2] + 1024) <= 233472
-    # bf16 operand rows hold C padded to 16, the chunk a head group's q|k|v
-    # padded to 8 and a hidden chunk; each stride an odd number of 16-byte units
-    assert p.lda >= -(-C // 16) * 16 and _units16(p.lda) % 2 == 1
-    assert p.ldq >= max(-(-3 * p.G * hd // 8) * 8, p.HC) and _units16(p.ldq) % 2 == 1
-    assert p.ldt == C + 4 and (4 * p.ldt) % 16 == 0
-    # trunk, two operand buffers, chunk, weights: 16-byte aligned, in order, no overlap
-    trunk, a1, a2, chunk, wts = p.offsets
-    assert all(off % 16 == 0 for off in p.offsets)
-    assert trunk == 0 and a1 >= 4 * M * p.ldt and a2 - a1 >= 2 * p.mp * p.lda
-    assert chunk - a2 >= 2 * p.mp * p.lda and wts - chunk >= 2 * p.mp * p.ldq
-    # each product's weights with K padded to 16 and O to 8, in either order
-    jobs = mma_jobs(C, nH, p.G, p.HC)
-    assert len(jobs) == nH // p.G + 1 + 2 * (4 * C // p.HC)
-    nG = nH // p.G
-    assert jobs[:nG + 1] == [(C, 3 * p.G * hd)] * nG + [(C, C)]
-    assert jobs[nG + 1:] == [(C, p.HC), (p.HC, C)] * (4 * C // p.HC)  # fc1 and fc2 cover all 4C hidden columns
-    sizes = []
-    for K, O in jobs:
-        Kp, Op = -(-K // 16) * 16, -(-O // 8) * 8
-        oi = Op * (Kp + 8 * (_units16(Kp) % 2 == 0))
-        io = Kp * (Op + 8 * (_units16(Op) % 2 == 0))
-        sizes.append(max(oi, io))
-    want = sum(sizes) if p.body == 2 else 2 * max(sizes)
-    assert p.smem_bytes - wts == 2 * want
-    if p.body == 1:  # slots are reused: no product may need a pad in K
-        assert all(K % 16 == 0 for K, _ in jobs)
+    maxn = 48 if C <= 48 else 96
+    assert p.body == 1 and p.CN == maxn
+    # rows padded to a multiple of 64, one consumer warpgroup each, and a producer warp pair
+    assert p.mp % 64 == 0 and M <= p.mp < M + 64 and p.nwg == p.mp // 64 and p.threads == 128 * p.nwg + 64
+    # a batch's token-major windows are whole 16-byte units (one bulk copy)
+    assert (2 * M * C) % 16 == 0
+    assert p.smem_bytes <= SMEM_MAX
+    assert p.min_ctas in (1, 2) and (p.min_ctas == 1 or p.smem_bytes <= SMEM_TWO_CTAS)
+    if C <= 48:
+        assert p.ring == 0  # all 12 C^2 weights resident
+    else:
+        assert C % 16 == 0 and 2 <= p.ring <= H_MAX_RING  # streamed through the ring
+    # every product fits the instance's accumulators
+    assert p.HC % 16 == 0 and (4 * C) % p.HC == 0 and p.HC <= maxn and -(-C // 8) * 8 <= maxn
+    assert nH % p.G == 0 and p.parts in (1, 3)
+    assert (3 if p.parts == 1 else 1) * p.G * hd <= maxn
+    jobs = hopper_jobs(C, nH, p.G, p.HC, p.parts)
+    assert len(jobs) == (nH // p.G) * p.parts + 1 + 2 * (4 * C // p.HC)
+    assert sum(O for w, _, O, _ in jobs if w == "qkv") == 3 * C  # every head's q, k and v
+    assert sum(O for w, _, O, _ in jobs if w == "fc1") == 4 * C == sum(K for w, K, _, _ in jobs if w == "fc2")
+    # swizzle spans divide the row bytes: A1/A2 (C padded to 16), the hidden chunk, each weight either way
+    Kpc = -(-C // 16) * 16
+    assert p.lda == Kpc and (2 * Kpc) % p.spans[0] == 0 and (2 * p.HC) % p.spans[1] == 0
+    first = {}
+    for w, K, O, _ in jobs:
+        first.setdefault(w, (K, O))
+    for i, w in enumerate(("qkv", "proj", "fc1", "fc2")):
+        K, O = first[w]
+        span_oi, span_io = p.spans[2 + 2 * i:4 + 2 * i]
+        assert (2 * (-(-K // 16) * 16)) % span_oi == 0 and (2 * (-(-O // 16) * 16)) % span_io == 0
+        assert all(s in (32, 64, 128) for s in (span_oi, span_io))
+    # the chunk's q|k|v rows: an odd number of 16-byte units (ldmatrix rows in distinct banks)
+    assert p.ldq >= 3 * p.G * hd and _units16(p.ldq) % 2 == 1
+    # layout: parameters, rel-pos bias, two stages, A1, A2, chunk, weights;
+    # 1024-aligned, in order, no overlap
+    par, rel, st0, st1, a1, a2, ch, wts = p.offsets
+    assert all(off % H_ALIGN == 0 for off in p.offsets) and par == H_ALIGN
+    assert rel - par >= 13 * C * 4 and st0 - rel >= nH * WINDOW_TOKENS ** 2 * 4
+    assert st1 - st0 == a1 - st1 >= 2 * M * C
+    assert a2 - a1 == ch - a2 >= 2 * p.mp * Kpc
+    assert wts - ch >= max(2 * max(p.mp, M + 7) * p.ldq, 2 * p.mp * p.HC)
+    slots = [-(-max(hopper_weight_bytes(K, O, True), hopper_weight_bytes(K, O, False)) // H_ALIGN) * H_ALIGN
+             for _, K, O, _ in jobs]
+    assert p.smem_bytes == H_ALIGN + wts + (p.ring * max(slots) if p.ring else sum(slots))
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
@@ -76,7 +97,7 @@ def _check_mma_plan(p, C, nH):
 def test_plan_fits_the_card_and_the_kernel(C, nH, dtype):
     p = kernel_plan(C, nH, dtype)
     if dtype == torch.bfloat16 and C <= 96:
-        _check_mma_plan(p, C, nH)
+        _check_hopper_plan(p, C, nH)
         return
     assert p.body == 0 and p.min_ctas == 1
     itemsize = 4 if dtype == torch.float32 else 2
@@ -130,12 +151,12 @@ def test_plan_refuses_what_the_kernel_does_not_take(C, nH, dtype, error):
 @pytest.mark.parametrize("round_qkv", [True, False], ids=["qkv-rounded", "qkv-fp32"])
 @pytest.mark.parametrize("C,nH", CST_LEVELS + WIDE_LEVELS)
 def test_bf16_serving_shapes_take_the_tensor_cores(C, nH, round_qkv):
-    """cst and wide (qkv rounded) in bf16 take the tensor-core body; with qkv
+    """cst and wide (qkv rounded) in bf16 take the Hopper body; with qkv
     kept fp32 (the row-major entry) the same width takes the fp32-FMA body's
     plan, as in fp32 apart from the weights' type."""
     p = kernel_plan(C, nH, torch.bfloat16, round_qkv)
     if round_qkv:
-        _check_mma_plan(p, C, nH)
+        _check_hopper_plan(p, C, nH)
     else:
         assert p.body == 0 and p.CN in (4, 8)
         assert (p.WB, p.G, p.HC, p.OT, p.CN) == kernel_plan(C, nH, torch.float32)[:2] + kernel_plan(
@@ -145,8 +166,78 @@ def test_bf16_serving_shapes_take_the_tensor_cores(C, nH, round_qkv):
 
 @pytest.mark.parametrize("C,nH", [(56, 14), (72, 6), (88, 2)])
 def test_bf16_plan_above_48_off_16_takes_the_fma_body(C, nH):
-    """Two weight slots are reused by every product, so no K may need a pad:
-    C a multiple of 16. Other bf16 widths above 48 (no level of the model)
-    take the fp32-FMA body."""
+    """Above C = 48 the Hopper body streams its weights by TMA boxes, which
+    need C a multiple of 16. Other bf16 widths above 48 (no level of the
+    model) take the fp32-FMA body."""
     p = kernel_plan(C, nH, torch.bfloat16)
     assert p.body == 0 and p.min_ctas == 1 and p.CN in (4, 8)
+
+
+# every bf16 width the Hopper body takes: the on-path levels and a spread of
+# others (head widths 4 to 96, qkv in one product or in three parts)
+HOPPER_CASES = sorted(set(CST_LEVELS + WIDE_LEVELS + [(4, 1), (8, 2), (16, 4), (20, 5), (32, 1), (32, 2), (36, 9),
+                                                      (40, 10), (44, 11), (48, 1), (48, 12), (64, 4), (64, 16),
+                                                      (80, 5), (80, 20), (96, 1), (96, 12), (96, 24)]))
+
+
+@pytest.mark.parametrize("C,nH", HOPPER_CASES)
+def test_hopper_plan_at_every_width_it_takes(C, nH):
+    _check_hopper_plan(kernel_plan(C, nH, torch.bfloat16), C, nH)
+
+
+@pytest.mark.parametrize("span,rows,cols", [
+    (span, rows, cols) for span in (32, 64, 128)
+    for rows, cols in [(8, 16), (40, 48), (64, 96), (128, 48), (96, 64), (256, 16), (128, 128)]
+    if (2 * cols) % span == 0])
+def test_swizzled_tile_is_a_bijection_onto_its_bytes(span, rows, cols):
+    """tile_offset, the mirror of the kernel's tile_off, puts the elements of
+    a rows x cols tile (cols whole spans) on distinct 2-byte slots that fill
+    exactly its rows * cols * 2 bytes."""
+    offs = {tile_offset(r, c, rows, span) for r in range(rows) for c in range(cols)}
+    assert offs == set(range(0, 2 * rows * cols, 2))
+
+
+@pytest.mark.parametrize("span", [32, 64, 128])
+def test_swizzle_matches_the_span_formula(span):
+    """Within a block, row r's 16-byte unit u lands at unit u ^ ((r * span /
+    128) mod (span / 16)): CUTLASS's Swizzle<log2(span / 16), 4, 3>, the
+    pattern of TMA's CU_TENSOR_MAP_SWIZZLE_<span>B; at 128 bytes, group ^
+    (row % 8) as a 64-element row of bf16."""
+    units = span // 16
+    for r in range(16):
+        for c in range(span // 2):
+            u = (2 * c) // 16
+            want = r * span + ((u ^ ((r * span >> 7) % units)) * 16) + (2 * c) % 16
+            assert tile_offset(r, c, 16, span) == want
+            if span == 128:
+                assert tile_offset(r, c, 16, span) == r * 128 + 2 * (((c // 8) ^ (r % 8)) * 8 + c % 8)
+    # a whole period of 8 rows maps onto itself, and the pattern repeats past it
+    assert all(swizzle(o + 8 * span, span) == swizzle(o, span) + 8 * span for o in range(0, 8 * span, 16))
+
+
+@pytest.mark.parametrize("nbytes,span", [(32, 32), (64, 64), (96, 32), (128, 128), (160, 32), (192, 64), (256, 128)])
+def test_span_is_the_widest_that_divides_a_row(nbytes, span):
+    assert span_of(nbytes) == span
+
+
+@pytest.mark.parametrize("layout,C,Wt,want", [
+    ("token-major", 96, 960, 2), ("token-major", 48, 15, 2), ("token-major", 24, 7, 2),
+    ("token-major", 12, 100, 1),   # 24-byte rows: no box; 10 windows are whole 16-byte units
+    ("slot-major", 96, 960, 3), ("slot-major", 48, 13, 3),
+    ("slot-major", 12, 100, 4),    # a box of 10 windows' 12 channels, token slot by token slot
+    ("slot-major", 12, 101, 0),    # odd rows of 12 channels: not whole 16-byte units
+    ("channels-major", 48, 64, 0), ("channels-major", 12, 64, 0),
+])
+def test_io_route_of_each_layout(layout, C, Wt, want):
+    """Which way the Hopper body moves the windows of each [C, N, Wt] view
+    the entries give it."""
+    N = WINDOW_TOKENS
+    x = torch.zeros(N * Wt * C + 8, dtype=torch.bfloat16)
+    base = x[(-x.data_ptr() % 16) // 2:][:N * Wt * C]  # 16-byte aligned
+    if layout == "token-major":
+        v = base.view(Wt, N, C).permute(2, 1, 0)
+    elif layout == "slot-major":
+        v = base.view(N, Wt, C).permute(2, 0, 1)
+    else:
+        v = base.view(C, N, Wt)
+    assert io_route(v, kernel_plan(C, 3 if C % 3 == 0 else 1, torch.bfloat16).WB) == want
