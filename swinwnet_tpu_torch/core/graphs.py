@@ -30,9 +30,23 @@ plain attribute: `dtype`, `fused_blocks`, `training`, ...). Moving a model,
 replacing a `Parameter` or switching its compute dtype captures again;
 `load_state_dict` copies in place, so the next replay reads the new weights.
 
-Launch counts stay right under replay: a graph records how many launches
-each counted kernel entry (`count_launches_of`) made while it was captured,
-and adds that many on every replay.
+Counts stay right under replay: a graph records how much each registered
+counter (`count_launches_of`: the fused kernels' launches, `models/layers.py`
+LayerNorms and casts) counted while it was captured, adds that much on
+every replay, and notes it under the function's name
+(`utils.profiling.graph_counts`).
+
+Tracing (`utils.profiling`): a call is split into spans, each with the
+function's name as its arg: `program.key` (the signature), then
+`program.eager` (the CPU, `run_eagerly`), `program.capture` (a new
+signature's warm-up and capture) or `program.copy_in`, `program.launch`
+(`graph.replay()`) and `program.clone_out`. Each graph is captured between
+two timing events, at its first node and its last, and each replay records
+a third on the stream just before its launch; at the program's next call,
+if the last event has completed (`query()`; nothing waits), they give the
+replay's `device.launch_wait` (launch to first node: how long the card
+waited on the host) and `device.graph` records, else the replay counts in
+`graph_events_missed`.
 
 On the CPU (the caller's choice: the CPU has no graphs) a program is its
 function, run eagerly. On a CUDA device nothing falls back: a warm-up or a
@@ -44,21 +58,28 @@ time (a graph keeps the functions it captured).
 from __future__ import annotations
 
 import contextlib
+import functools
 import gc
 import threading
-from typing import Any, Callable, Iterable, Iterator, List, Optional, Sequence
+from typing import Callable, Iterable, Iterator, Optional, Sequence
 
 import torch
 from torch import nn
 
-_COUNTED: List[Any] = []  # kernel entries with an int `launches`, registered by their modules
+from ..utils import profiling
+from ..utils.profiling import Counter, count_launches_of, span  # noqa: F401 -- the kernels register through here
+
 _local = threading.local()
+EVENTS_MISSED = Counter("graph_events_missed")
 
 
-def count_launches_of(*entries) -> None:
-    """Register kernel entries whose `launches` attribute counts their
-    launches: a graph that captures them adds their counts on replay."""
-    _COUNTED.extend(entries)
+def name_of(fn: Callable) -> str:
+    """A function's name for spans and counts: its qualified name without
+    `<locals>`, through partials and decorators."""
+    while isinstance(fn, functools.partial):
+        fn = fn.func
+    name = getattr(fn, "__qualname__", None) or type(fn).__qualname__
+    return name.replace("<locals>.", "")
 
 
 @contextlib.contextmanager
@@ -140,20 +161,48 @@ class _Watch:
 
 
 class _Graph:
-    """One captured signature: its graph, static inputs and outputs, and
-    the launches of each counted entry a replay stands for."""
+    """One captured signature: its graph, static inputs and outputs, the
+    counts a replay stands for, and its timing events."""
 
-    def __init__(self, graph, inputs, out_struct, outputs, launches):
-        self.graph, self.inputs = graph, inputs
-        self.out_struct, self.outputs, self.launches = out_struct, outputs, launches
+    def __init__(self, graph, inputs, out_struct, outputs, counts, events, device):
+        self.graph, self.inputs, self.device = graph, inputs, device
+        self.out_struct, self.outputs, self.counts = out_struct, outputs, counts
+        self.first, self.last = events
+        self.before = torch.cuda.Event(enable_timing=True)
+        self.stream = (None, None)  # the raw stream last launched on, and its Stream
+        self.launch = None  # the span of a replay whose events are not read yet
 
-    def __call__(self, tensors: Sequence[torch.Tensor]):
-        for dst, src in zip(self.inputs, tensors):
-            dst.copy_(src)
-        self.graph.replay()
-        for entry, n in self.launches:
+    def __call__(self, tensors: Sequence[torch.Tensor], name: str):
+        with span("program.copy_in", name):
+            for dst, src in zip(self.inputs, tensors):
+                dst.copy_(src)
+        with span("program.launch", name) as launch:
+            self.before.record(self._current_stream())
+            self.graph.replay()
+        self.launch = launch
+        for entry, n in self.counts:
             entry.launches += n
-        return _unflatten(self.out_struct, iter(_fresh(x) for x in self.outputs))
+        with span("program.clone_out", name):
+            return _unflatten(self.out_struct, iter(_fresh(x) for x in self.outputs))
+
+    def _current_stream(self) -> torch.cuda.Stream:
+        """The stream a replay launches on; its Stream object made again
+        only when it changes."""
+        raw = torch._C._cuda_getCurrentRawStream(self.device.index)
+        if raw != self.stream[0]:
+            self.stream = (raw, torch.cuda.current_stream(self.device))
+        return self.stream[1]
+
+    def read_events(self) -> None:
+        """The last replay's device records, if its events have completed."""
+        launch, self.launch = self.launch, None
+        if not self.last.query():
+            EVENTS_MISSED.launches += 1
+            return
+        wait = round(self.before.elapsed_time(self.first) * 1e6)
+        run = round(self.first.elapsed_time(self.last) * 1e6)
+        profiling.record("device.launch_wait", launch, launch.start, launch.start + wait)
+        profiling.record("device.graph", launch, launch.start + wait, launch.start + wait + run)
 
 
 def _fresh(x):
@@ -172,10 +221,12 @@ class Program:
     def __init__(self, fn: Callable, modules: Sequence[nn.Module] = (),
                  state: Optional[Callable[..., Iterable[torch.Tensor]]] = None, donate: bool = False):
         self.fn, self.donate = fn, donate
+        self.name = name_of(fn)
         self._watch = _Watch(modules)
         self._state = state
         self._graphs = {}
         self._pool = None
+        self._unread: Optional[_Graph] = None  # the graph last replayed, its events not read yet
 
     @property
     def num_graphs(self) -> int:
@@ -183,21 +234,32 @@ class Program:
         return len(self._graphs)
 
     def __call__(self, *args):
-        leaves: list = []
-        struct = _flatten(args, leaves)
-        tensors = [x for x in leaves if isinstance(x, torch.Tensor)]
-        device = tensors[0].device if tensors else self._watch.device()
-        if device is None or device.type != "cuda" or getattr(_local, "eager", 0):
-            return self.fn(*args)
-        state = () if self._state is None else tuple(t.data_ptr() for t in self._state(*args))
-        key = (struct, torch.is_grad_enabled(),
-               tuple((tuple(x.shape), x.dtype, x.device) if isinstance(x, torch.Tensor) else _static_key(x)
-                     for x in leaves),
-               self._watch.key(), state)
-        graph = self._graphs.get(key)
-        if graph is not None:
-            return graph(tensors)
-        return self._capture(key, struct, leaves, device)
+        unread, self._unread = self._unread, None
+        if unread is not None:
+            unread.read_events()
+        name = self.name
+        with span("program.key", name):
+            leaves: list = []
+            struct = _flatten(args, leaves)
+            tensors = [x for x in leaves if isinstance(x, torch.Tensor)]
+            device = tensors[0].device if tensors else self._watch.device()
+            eager = device is None or device.type != "cuda" or getattr(_local, "eager", 0)
+            if not eager:
+                state = () if self._state is None else tuple(t.data_ptr() for t in self._state(*args))
+                key = (struct, torch.is_grad_enabled(),
+                       tuple((tuple(x.shape), x.dtype, x.device) if isinstance(x, torch.Tensor) else _static_key(x)
+                             for x in leaves),
+                       self._watch.key(), state)
+                graph = self._graphs.get(key)
+        if eager:
+            with span("program.eager", name):
+                return self.fn(*args)
+        if graph is None:
+            with span("program.capture", name):
+                return self._capture(key, struct, leaves, device)
+        out = graph(tensors, name)
+        self._unread = graph
+        return out
 
     def _capture(self, key, struct, leaves, device):
         """Warm up on static copies of the inputs (the call's result), then
@@ -221,7 +283,10 @@ class Program:
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()
-        before = [entry.launches for entry in _COUNTED]
+        events = (torch.cuda.Event(enable_timing=True, external=True),
+                  torch.cuda.Event(enable_timing=True, external=True))
+        counted = list(profiling.COUNTERS)
+        before = [entry.launches for entry in counted]
         # no garbage collection while capturing: collecting a dead cycle that
         # holds another program's graph would destroy that graph, a CUDA call
         # the capture does not allow, and the capture would fail
@@ -229,19 +294,22 @@ class Program:
         gc.disable()
         try:
             with torch.cuda.device(device), torch.cuda.graph(graph, pool=self._pool):
+                events[0].record()
                 captured = self.fn(*args)
+                events[1].record()
         finally:
             if collecting:
                 gc.enable()
-            # the capture ran no kernel: its launches are counted on replay
-            counted = [entry.launches - b for entry, b in zip(_COUNTED, before)]
-            for entry, b in zip(_COUNTED, before):
+            # the capture ran no kernel: its counts are added on replay
+            counts = [(entry, entry.launches - b) for entry, b in zip(counted, before)]
+            for entry, b in zip(counted, before):
                 entry.launches = b
         outputs: list = []
         captured_struct = _flatten(captured, outputs)
         if captured_struct != out_struct:
             raise RuntimeError("the captured function returned another structure than its warm-up")
         static_inputs = [x for x in static if isinstance(x, torch.Tensor)]
-        launches = [(entry, n) for entry, n in zip(_COUNTED, counted) if n]
-        self._graphs[key] = _Graph(graph, static_inputs, out_struct, outputs, launches)
+        profiling.note_capture(self.name, {entry.__name__: n for entry, n in counts})
+        self._graphs[key] = _Graph(graph, static_inputs, out_struct, outputs, [(e, n) for e, n in counts if n],
+                                   events, device)
         return result

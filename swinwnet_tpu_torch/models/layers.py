@@ -61,26 +61,48 @@ from ..ops.window import (
     window_reverse,
     window_reverse_nmajor,
 )
+from ..utils.profiling import Counter
+
+
+# What the levels launch, counted where it happens (and kept right under
+# graph replay, `core.graphs`): `layer_norm`'s LayerNorms, and the casts
+# that convert, of parameters (`linear`, `conv2d`, the fused blocks' and the
+# cross-attention's weights) apart from those of activations (`linear`,
+# `conv2d`, `layer_norm`, a fused block's input).
+LAYER_NORMS = Counter("layer_norm")
+WEIGHT_CASTS = Counter("weight_cast")
+ACTIVATION_CASTS = Counter("activation_cast")
+
+
+def _cast(t: torch.Tensor, dtype: torch.dtype, counter: Counter) -> torch.Tensor:
+    """`t` in `dtype`; a cast that converts counts in `counter`."""
+    if t.dtype == dtype:
+        return t
+    counter.launches += 1
+    return t.to(dtype)
 
 
 def linear(x: torch.Tensor, lin: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
     """nn.Linear with operands, product and bias in the compute dtype (fp32
     at full fp32)."""
-    bias = None if lin.bias is None else lin.bias.to(dtype)
+    bias = None if lin.bias is None else _cast(lin.bias, dtype, WEIGHT_CASTS)
     with full_fp32(dtype):
-        return F.linear(x.to(dtype), lin.weight.to(dtype), bias)
+        return F.linear(_cast(x, dtype, ACTIVATION_CASTS), _cast(lin.weight, dtype, WEIGHT_CASTS), bias)
 
 
 def layer_norm(x: torch.Tensor, ln: nn.LayerNorm, dtype: torch.dtype) -> torch.Tensor:
     """LayerNorm with fp32 statistics (eps 1e-5), output in the compute dtype."""
-    return F.layer_norm(x.float(), ln.normalized_shape, ln.weight, ln.bias, 1e-5).to(dtype)
+    LAYER_NORMS.launches += 1
+    y = F.layer_norm(_cast(x, torch.float32, ACTIVATION_CASTS), ln.normalized_shape, ln.weight, ln.bias, 1e-5)
+    return _cast(y, dtype, ACTIVATION_CASTS)
 
 
 def conv2d(x: torch.Tensor, conv: nn.Conv2d, dtype: torch.dtype, **kw) -> torch.Tensor:
     """A cuDNN convolution in the compute dtype (fp32 at full fp32), its
     backward deterministic (`ops.conv`)."""
     with full_fp32(dtype):
-        return det_conv2d(x.to(dtype), conv.weight.to(dtype), conv.bias.to(dtype), **kw)
+        return det_conv2d(_cast(x, dtype, ACTIVATION_CASTS), _cast(conv.weight, dtype, WEIGHT_CASTS),
+                          _cast(conv.bias, dtype, WEIGHT_CASTS), **kw)
 
 
 def _refuse_capture(what: str) -> None:
@@ -304,10 +326,10 @@ class SwinTransformerBlock(nn.Module):
         qkv_b = self.attn.qkv.bias
         if qkv_b is None:
             qkv_b = torch.zeros(3 * self.dim, device=x.device)
-        in_out = lambda lin: lin.weight.to(dt).t()
-        out_in = (lambda lin: lin.weight.to(dt)) if layout == "cmajor" else in_out
+        in_out = lambda lin: _cast(lin.weight, dt, WEIGHT_CASTS).t()
+        out_in = (lambda lin: _cast(lin.weight, dt, WEIGHT_CASTS)) if layout == "cmajor" else in_out
         return fused_block_autodiff(
-            layout, self.num_heads, x.to(dt), pad_mask,
+            layout, self.num_heads, _cast(x, dt, ACTIVATION_CASTS), pad_mask,
             self.norm1.weight, self.norm1.bias,
             out_in(self.attn.qkv), qkv_b,
             self.attn.rel_bias(),
@@ -695,9 +717,9 @@ class CrossAttentionBlock(nn.Module):
         kvn = layer_norm(kv, self.norm_kv, dt)
         with full_fp32(dt):
             # bf16 products, fp32 bias: the projections come out fp32, as in JAX
-            qp = F.linear(qn, w[:C].to(dt)).float() + b[:C]
-            kp = F.linear(kvn, w[C:2 * C].to(dt)).float() + b[C:2 * C]
-            vp = F.linear(kvn, w[2 * C:].to(dt)).float() + b[2 * C:]
+            qp = F.linear(qn, _cast(w[:C], dt, WEIGHT_CASTS)).float() + b[:C]
+            kp = F.linear(kvn, _cast(w[C:2 * C], dt, WEIGHT_CASTS)).float() + b[C:2 * C]
+            vp = F.linear(kvn, _cast(w[2 * C:], dt, WEIGHT_CASTS)).float() + b[2 * C:]
             qp = qp.reshape(B, Lq, nH, hd).transpose(1, 2) * hd ** -0.5
             kp = kp.reshape(B, Lk, nH, hd).transpose(1, 2)
             vp = vp.reshape(B, Lk, nH, hd).transpose(1, 2)

@@ -7,7 +7,8 @@ segment_2 -> mask, on the model's device, as the three stages of
 program (`core.graphs`: on the card a CUDA graph captured once per input
 shape and replayed, as the JAX package jit-compiles it), and
 `SwinWNetInference` calls through it, keeping every stage as an attribute
-as the reference wrapper does.
+as the reference wrapper does. A call is a `serve.request` span, the batch's
+move to the card a `serve.to_device` span inside it (`utils.profiling`).
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import torch
 from ..core.graphs import Program
 from ..models.swin_wnet import SwinWNet
 from ..ops.norms import denormalize_piecewise, ensure_2ch, normalize_piecewise
+from ..utils.profiling import span
 from .split import inference_stages, make_split_inference_fn
 
 STAGE_NAMES = (
@@ -66,11 +68,13 @@ class SwinWNetInference:
     denormalize_piecewise = staticmethod(denormalize_piecewise)
 
     def __call__(self, images) -> torch.Tensor:
-        self._reset_outputs()
-        if isinstance(images, np.ndarray):
-            images = torch.from_numpy(images)
-        images = images.to(device=self.device, dtype=torch.float32)
-        stages = self._fn(images)
-        for name in STAGE_NAMES:
-            setattr(self, name, stages[name])
-        return self.images_masked_hr
+        with span("serve.request"):
+            self._reset_outputs()
+            with span("serve.to_device"):
+                if isinstance(images, np.ndarray):
+                    images = torch.from_numpy(images)
+                images = images.to(device=self.device, dtype=torch.float32)
+            stages = self._fn(images)
+            for name in STAGE_NAMES:
+                setattr(self, name, stages[name])
+            return self.images_masked_hr

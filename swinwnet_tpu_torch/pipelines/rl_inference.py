@@ -6,7 +6,8 @@ Stage order (reference :95-145): ensure_2ch -> segment_1 -> mask ->
 normalize -> policy(mu) -> upscale -> apply_action -> denormalize ->
 segment_2 -> mask, on the model's device; `alpha` is an extra stage.
 `make_rl_inference_fn` makes it one program (`core.graphs`: a CUDA graph
-per input shape on the card), and `RLInference` calls through it.
+per input shape on the card), and `RLInference` calls through it, a
+`serve.request` span a call (`utils.profiling`).
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from ..core.graphs import Program
 from ..models.alpha_policy import AlphaPolicy, apply_action
 from ..models.swin_wnet import SwinWNet
 from ..ops.norms import denormalize_piecewise, ensure_2ch, normalize_piecewise
+from ..utils.profiling import span
 from .inference import STAGE_NAMES
 
 
@@ -77,10 +79,12 @@ class RLInference:
             setattr(self, name, None)
 
     def __call__(self, images) -> torch.Tensor:
-        self._reset_outputs()
-        if isinstance(images, np.ndarray):
-            images = torch.from_numpy(images)
-        images = images.to(device=self.device, dtype=torch.float32)
-        for name, value in self._fn(images).items():
-            setattr(self, name, value)
-        return self.images_masked_hr
+        with span("serve.request"):
+            self._reset_outputs()
+            with span("serve.to_device"):
+                if isinstance(images, np.ndarray):
+                    images = torch.from_numpy(images)
+                images = images.to(device=self.device, dtype=torch.float32)
+            for name, value in self._fn(images).items():
+                setattr(self, name, value)
+            return self.images_masked_hr

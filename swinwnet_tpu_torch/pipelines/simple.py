@@ -11,7 +11,9 @@ Each returns a callable that takes numpy or a tensor, moves it to the
 model's device and runs the pipeline there under `torch.inference_mode` as
 one program (`core.graphs`: on the card a CUDA graph captured once per
 input shape and replayed, as the JAX package jit-compiles it); the program
-is the callable's `program` attribute.
+is the callable's `program` attribute. A call is a `serve.request` span,
+the move to the device a `serve.to_device` span inside it
+(`utils.profiling`).
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import torch
 from ..core.graphs import Program
 from ..models.swin_unet import SwinUNet, SwinUNetSR
 from ..ops.norms import denormalize_piecewise, normalize_piecewise
+from ..utils.profiling import span
 
 
 def _on_device(model: torch.nn.Module, images) -> torch.Tensor:
@@ -33,7 +36,10 @@ def _program_of(model: torch.nn.Module, run):
     program = Program(torch.inference_mode()(run), modules=(model,))
 
     def fn(images) -> torch.Tensor:
-        return program(_on_device(model, images))
+        with span("serve.request"):
+            with span("serve.to_device"):
+                images = _on_device(model, images)
+            return program(images)
 
     fn.program = program
     return fn
@@ -41,7 +47,11 @@ def _program_of(model: torch.nn.Module, run):
 
 def make_segmentation_fn(model: SwinUNet):
     model.eval()
-    return _program_of(model, lambda images: torch.sigmoid(model(images)))
+
+    def segment(images):
+        return torch.sigmoid(model(images))
+
+    return _program_of(model, segment)
 
 
 def make_sr_fn(model: SwinUNetSR, normalize: bool = True):

@@ -52,6 +52,7 @@ from ..ops.resize import bilinear_downscale_half
 from ..physics.device_metrics import diffraction_metrics_device
 from ..physics.qwrapper import Qwrapper, d_centers_hr
 from ..core.graphs import Program
+from ..utils.profiling import span
 from .freeze import AdamW, masked_adamw
 from .trainers import TrainState, compute_dtype_of
 
@@ -170,9 +171,12 @@ def make_rl_train_step(model: SwinWNet, policy: AlphaPolicy, model_tx: AdamW, po
     program = Program(run, modules=(model, policy), state=_rl_state_tensors)
 
     def step(state: RLState, images):
-        device = next(model.parameters()).device
-        images = torch.as_tensor(images).to(device=device, dtype=torch.float32)
-        return state, program(state, images, draw_noise(state.rng, images.shape[0], device))
+        with span("train.step"):
+            with span("train.batch"):
+                device = next(model.parameters()).device
+                images = torch.as_tensor(images).to(device=device, dtype=torch.float32)
+                noise = draw_noise(state.rng, images.shape[0], device)
+            return state, program(state, images, noise)
 
     return step
 

@@ -26,7 +26,10 @@ shape, that holds the forward, the backward and the update (the learning
 rate and the bias corrections are read from the optimizer's count on the
 device) and replays them with one host call, as the JAX package jit-compiles
 them. A step updates the state in place and returns the same state. The
-three trainers step through these factories.
+three trainers step through these factories. A step or eval is a
+`train.step` span, its `_batch` a `train.batch` span inside it, and its
+program is named after its loss (`stage3_even_loss.step`, ...;
+`utils.profiling`).
 
 Mixed precision: `compute_dtype=torch.bfloat16` runs the model's products
 in bf16 while parameters, optimizer state and losses stay fp32 and the
@@ -42,18 +45,20 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
 
 from ..core.device import resolve_dtype
-from ..core.graphs import Program
+from ..core.graphs import Program, name_of
 from ..models.swin_wnet import SwinWNet
 from ..ops.norms import denormalize_piecewise, ensure_2ch, normalize_piecewise
 from ..ops.resize import bilinear_downscale_half, nearest_exact_resize
 from ..utils.checkpoint import latest_checkpoint, load_checkpoint, save_checkpoint
 from ..utils.logging import MetricsLogger
+from ..utils.profiling import span
 from .freeze import AdamW, masked_adamw
 from .losses import get_segmentation_loss, get_upscaler_loss
 from .schedule import warmup_cosine_schedule
@@ -194,11 +199,14 @@ def _step_program(model: SwinWNet, loss_of: Callable, compute_dtype, aux: bool =
         opt.step()
         return {k: v.detach() for k, v in out[1].items()} if aux else loss.detach()
 
+    run.__qualname__ = f"{name_of(loss_of)}.step"
     program = Program(run, modules=(model,), state=_state_tensors)
 
     def step(state: TrainState, images, masks=None):
-        images, masks = _batch(model, images, masks)
-        return state, program(state, images, masks)
+        with span("train.step"):
+            with span("train.batch"):
+                images, masks = _batch(model, images, masks)
+            return state, program(state, images, masks)
 
     return step
 
@@ -213,10 +221,14 @@ def _eval_program(model: SwinWNet, loss_of: Callable, compute_dtype, aux: bool =
             out = loss_of(images, masks)
         return out[1] if aux else out
 
+    run.__qualname__ = f"{name_of(loss_of)}.eval"
     program = Program(run, modules=(model,))
 
     def eval_step(images, masks=None):
-        return program(*_batch(model, images, masks))
+        with span("train.step"):
+            with span("train.batch"):
+                batch = _batch(model, images, masks)
+            return program(*batch)
 
     return eval_step
 
@@ -226,24 +238,24 @@ def make_stage1_step(model: SwinWNet, tx: AdamW, loss_fn, compute_dtype=None) ->
     loss)`. `tx` is the optimizer the state was created with (the update
     runs on `state.opt_state`); `compute_dtype` (None: the model's own) is
     the JAX `_with_compute_dtype`: the forward and the backward run in it."""
-    return _step_program(model, lambda images, masks: stage1_loss(model, loss_fn, images, masks), compute_dtype)
+    return _step_program(model, functools.partial(stage1_loss, model, loss_fn), compute_dtype)
 
 
 def make_stage1_eval(model: SwinWNet, loss_fn, compute_dtype=None) -> Callable:
     """`eval_step(images, masks) -> loss`. The model owns its weights, so
     there is no `params` argument (the JAX `eval_step(params, images,
     masks)`), as in `make_inference_fn`."""
-    return _eval_program(model, lambda images, masks: stage1_loss(model, loss_fn, images, masks), compute_dtype)
+    return _eval_program(model, functools.partial(stage1_loss, model, loss_fn), compute_dtype)
 
 
 def make_stage2_step(model: SwinWNet, tx: AdamW, loss_fn, compute_dtype=None) -> Callable:
     """SR pretrain step: `step(state, hr, _masks=None) -> (state, loss)`."""
-    return _step_program(model, lambda hr, _: stage2_loss(model, loss_fn, hr), compute_dtype)
+    return _step_program(model, functools.partial(stage2_loss, model, loss_fn), compute_dtype)
 
 
 def make_stage2_eval(model: SwinWNet, loss_fn, compute_dtype=None) -> Callable:
     """`eval_step(hr, _masks=None) -> loss`."""
-    return _eval_program(model, lambda hr, _: stage2_loss(model, loss_fn, hr), compute_dtype)
+    return _eval_program(model, functools.partial(stage2_loss, model, loss_fn), compute_dtype)
 
 
 def make_stage3_steps(model: SwinWNet, tx: AdamW, seg_loss_fn, sr_loss_fn, seg_weight_lr: float = 1.0,
@@ -252,8 +264,8 @@ def make_stage3_steps(model: SwinWNet, tx: AdamW, seg_loss_fn, sr_loss_fn, seg_w
     aux)`, and their evals, `eval_step(images, masks) -> aux`: (even_step,
     odd_step, even_eval, odd_eval)."""
     weights = (seg_weight_lr, seg_weight_hr, rec_weight)
-    even = lambda images, masks: stage3_even_loss(model, seg_loss_fn, sr_loss_fn, weights, images, masks)
-    odd = lambda images, masks: stage3_odd_loss(model, seg_loss_fn, sr_loss_fn, weights, images, masks)
+    even = functools.partial(stage3_even_loss, model, seg_loss_fn, sr_loss_fn, weights)
+    odd = functools.partial(stage3_odd_loss, model, seg_loss_fn, sr_loss_fn, weights)
     return (_step_program(model, even, compute_dtype, aux=True), _step_program(model, odd, compute_dtype, aux=True),
             _eval_program(model, even, compute_dtype, aux=True), _eval_program(model, odd, compute_dtype, aux=True))
 

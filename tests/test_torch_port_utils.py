@@ -2,8 +2,8 @@
 debug.py, profiling.py): `nan_check` raises at the first non-finite result
 of a forward (naming the module) and of a backward; `assert_finite_pytree`
 names the first non-finite path of a state dict or an optimizer state;
-`trace_context` writes a Chrome trace; `StageTimer` times stages on the CPU
-and asks for a card unless the CPU is named."""
+`trace_context` writes a Chrome trace (the spans are held in
+test_torch_port_tracing.py)."""
 
 import json
 
@@ -11,7 +11,7 @@ import pytest
 import torch
 from torch import nn
 
-from swinwnet_tpu_torch.utils import StageTimer, assert_finite_pytree, nan_check, trace_context
+from swinwnet_tpu_torch.utils import assert_finite_pytree, nan_check, trace_context
 
 torch.set_num_threads(1)
 
@@ -66,14 +66,3 @@ def test_trace_context_writes_a_chrome_trace(tmp_path):
     assert any("mm" in e.get("name", "") for e in trace["traceEvents"])
     with trace_context(None):
         pass
-
-
-def test_stage_timer_on_the_cpu(monkeypatch):
-    t = StageTimer("cpu")
-    for _ in range(2):
-        with t.stage("a"):
-            torch.ones(32, 32).sum()
-    assert len(t.seconds("a")) == 2 and 0 < t.summary()["a"] < 1.0
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="CUDA"):
-        StageTimer()
