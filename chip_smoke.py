@@ -20,11 +20,16 @@
    at one window fewer, as many and one more than a batch, at a count whose
    ragged last batch is the second its persistent CTA takes, and with
    the output over the input; and the differentiable block's gradients
-   against autograd through the plain fp32 reference, per layout;
+   against autograd through the plain fp32 reference, per layout; then
+   `patch_expand_norm` (PatchExpanding's shuffle and LayerNorm,
+   ops/csrc/expand_norm.cu) against `patch_expand_norm_plain` at the five
+   shapes the serving pipeline gives it (C/2 = 192 down to 12), B=1 and
+   B=64, in bf16 within one bf16 ulp of the plain value;
 3. serving: three [4, 2, 250, 480] requests through SwinWNetInference at the
    published width (embed 48, depths 2-2-2-2, heads 3-6-12-24, window 5) in
    bf16, random weights from a seed, live cross-attention; counts the
-   kernel's launches (22 per call), checks the 8 stage tensors, compares
+   kernel's launches (22 per call) and the expansions' (11 per call, the
+   counter zeroed before the calls), checks the 8 stage tensors, compares
    with the pipeline run through the plain versions; then B=1 in fp32 (10);
 4. training, this script's second main path: SwinWNetTrainingPipeline.run in
    fp32 with fused_blocks and fused_deep on [8, 2, 250, 480] batches, one
@@ -182,7 +187,11 @@ The serving and training phases ([3], [4], [5], [7], [10]-[14],
 [17], [18], [19], [21]) run through the programs because their callers
 do; a route that swaps functions in at run time (the plain versions, the
 pad-mask control, [8]'s timers) runs under
-`core.graphs.run_eagerly()`, and so does a gloo group on the card.
+`core.graphs.run_eagerly()`, and so does a gloo group on the card. Every
+plain route (the blocks' plain versions, the unfused levels, a model built
+with fused_blocks=False) runs the expansions' plain version too
+(plain_expansions): serving runs under `torch.inference_mode`, where
+`PatchExpanding` takes the kernel whatever the blocks' route.
 
 In bf16 each pipeline stage's mean error against the plain route is held to
 a limit from its own scale (bf16_limits): the smaller of how far bf16 moves
@@ -246,6 +255,7 @@ from swinwnet_tpu_torch.models import (
     init_weights,
 )
 from swinwnet_tpu_torch.models import layers as layers_mod
+from swinwnet_tpu_torch.ops import expand_norm as en
 from swinwnet_tpu_torch.ops import swin_block as sb
 from swinwnet_tpu_torch.ops.norms import denormalize_piecewise, ensure_2ch, normalize_piecewise
 from swinwnet_tpu_torch.ops.resize import bilinear_resize
@@ -348,6 +358,12 @@ LEVELS = [
     ("SR level 2", 12, 3, (500, 960), 2),
 ]
 LAUNCHES_PER_CALL = {torch.bfloat16: 22, torch.float32: 10}
+# PatchExpanding's kernel (patch_expand_norm): 11 launches a SwinWNet serving
+# call in either dtype (segment_1's and segment_2's decoders three each, the
+# upscaler's decoder three and its SR head two), at these (C/2, token grid
+# of its input at B=1): the decoders' three, the SR head's two
+EXPANSIONS_PER_CALL = 11
+EXPAND_LEVELS = [(192, (16, 30)), (96, (32, 60)), (48, (63, 120)), (24, (125, 240)), (12, (250, 480))]
 # the row-major kernel's signatures with fused_deep in fp32 (every level above
 # the fp32 cap of 48): (name, C, nH, token grid, batch for the check). B=1
 # where that gives at least 128 windows, else the training batch.
@@ -489,16 +505,31 @@ def block_cost(C, nH, Wt, dtype, masked):
 
 
 @contextlib.contextmanager
+def plain_expansions():
+    """Route PatchExpanding's kernel to its plain version on the card, for
+    comparison; the programs run eagerly meanwhile, since a graph keeps the
+    kernel it captured."""
+    orig = layers_mod.patch_expand_norm
+    layers_mod.patch_expand_norm = en.patch_expand_norm_plain
+    try:
+        with graphs.run_eagerly():
+            yield
+    finally:
+        layers_mod.patch_expand_norm = orig
+
+
+@contextlib.contextmanager
 def plain_blocks():
-    """Route the differentiable block's three entries to their plain
-    versions on the card, for comparison; the programs (core.graphs) run
-    eagerly meanwhile, since a graph keeps the entries it captured."""
+    """Route the differentiable block's three entries and PatchExpanding's
+    kernel to their plain versions on the card, for comparison; the
+    programs (core.graphs) run eagerly meanwhile, since a graph keeps the
+    entries it captured."""
     orig = (sb.fused_swin_block_cst, sb.fused_swin_block, sb.fused_swin_block_wide)
     sb.fused_swin_block_cst = sb.swin_block_plain
     sb.fused_swin_block = sb.swin_block_rowmajor_plain
     sb.fused_swin_block_wide = sb.swin_block_wide_plain
     try:
-        with graphs.run_eagerly():
+        with plain_expansions():
             yield
     finally:
         sb.fused_swin_block_cst, sb.fused_swin_block, sb.fused_swin_block_wide = orig
@@ -574,6 +605,43 @@ def report(tag, out, ref, dtype, extra_ok=True):
     if not ok:
         raise SystemExit(f"kernel disagrees with its plain version at {tag} ({dtype})")
     return err
+
+
+def bf16_ulp(v):
+    """One bf16 ulp at each value, 2^(e - 8) for |v| in [2^(e-1), 2^e),
+    taken at no less than 2^-8 in magnitude: below it the affine step's
+    cancellation (w x + b near 0) leaves a value whose fp32 rounding is
+    itself more than one of its bf16 ulps."""
+    _, e = torch.frexp(v.float().abs().clamp_min(2.0 ** -8))
+    return torch.ldexp(torch.ones_like(v, dtype=torch.float32), e - 8)
+
+
+def check_expand_norm():
+    """`patch_expand_norm` against `patch_expand_norm_plain` at the serving
+    pipeline's five expansion shapes, B=1 and B=64, bf16: the two differ
+    only in the order of the fp32 sums, so each output within one bf16 ulp
+    of the plain value. Returns the worst distance in ulps."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    worst = 0.0
+    for c, grid in EXPAND_LEVELS:
+        ln = torch.nn.LayerNorm(c).cuda()
+        with torch.no_grad():
+            ln.weight.copy_(torch.rand(c, generator=gen, device="cuda") + 0.5)
+            ln.bias.copy_(torch.randn(c, generator=gen, device="cuda") * 0.1)
+        for batch in (1, SEG_B):
+            y = (torch.randn(batch, *grid, 4 * c, generator=gen, device="cuda") * 2 + 0.5).to(torch.bfloat16)
+            before = en.patch_expand_norm.launches
+            out = en.patch_expand_norm(y, ln, torch.bfloat16)
+            want = en.patch_expand_norm_plain(y, ln, torch.bfloat16)
+            ulps = ((out.float() - want.float()).abs() / bf16_ulp(want)).max().item()
+            ok = ulps <= 1 and en.patch_expand_norm.launches == before + 1 and out.shape == want.shape
+            print(f"  patch_expand_norm C/2={c:3d} B={batch:2d} y {tuple(y.shape)}: max {ulps:.2f} bf16 ulp of plain "
+                  f"(limit 1) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"patch_expand_norm disagrees with its plain version at C/2={c}, B={batch}")
+            worst = max(worst, ulps)
+            del y, out, want
+    return worst
 
 
 def check_kernel(dtype, gen):
@@ -813,6 +881,7 @@ def serve(dtype, batch, n_calls, rng, profile=False, **model_kw):
     torch.cuda.synchronize()
 
     sb.reset_counts()
+    en.patch_expand_norm.launches = 0
     per_call, call_ms, first = [], [], None
     for req in requests:
         before = launches()
@@ -824,6 +893,11 @@ def serve(dtype, batch, n_calls, rng, profile=False, **model_kw):
         if first is None:
             first = {k: getattr(infer, k).clone() for k in STAGE_NAMES}
     total = launches()
+    expansions = en.patch_expand_norm.launches
+    print(f"  patch_expand_norm launches over the {n_calls} calls: {expansions} "
+          f"({EXPANSIONS_PER_CALL} a call expected)")
+    if expansions != EXPANSIONS_PER_CALL * n_calls:
+        raise SystemExit(f"serving launched patch_expand_norm {expansions} times in {n_calls} calls")
 
     with plain_blocks():
         infer(requests[0])
@@ -836,7 +910,7 @@ def serve(dtype, batch, n_calls, rng, profile=False, **model_kw):
         with compute_dtype_of(model, torch.float32):  # the bf16 rule's reference
             infer(requests[0])
             ref = {k: getattr(infer, k).clone() for k in STAGE_NAMES}
-    if launches() != total:
+    if launches() != total or en.patch_expand_norm.launches != expansions:
         raise SystemExit("the plain pipeline launched a kernel")
     if profile:
         profile_call(lambda: infer(requests[0]), "one serving call")
@@ -1617,7 +1691,8 @@ def unfused(model):
     for m in levels:
         m.fused_blocks = False
     try:
-        yield
+        with plain_expansions():
+            yield
     finally:
         for m in levels:
             m.fused_blocks = True
@@ -2065,7 +2140,8 @@ def viewer_main_path(rng):
 
         plain_model = SwinWNet(in_chans=1, error_matrix=True, fused_blocks=False, device="cuda", **PUBLISHED)
         plain_model.load_state_dict(load_pth(pth))
-        plain = ViewerSession(plain_model).run(images)
+        with plain_expansions():
+            plain = ViewerSession(plain_model).run(images)
         worst = stage_check("viewer main vs fused_blocks=False", stages, plain, torch.float32)
         errs = [check_viewer_csv(f"{tmp}/main/input_id_curves.csv", stages["images"], d_centers_lr, VIEW_B),
                 check_viewer_csv(f"{tmp}/main/masked_hr_id_curves.csv", stages["images_masked_hr"], d_centers_hr, VIEW_B)]
@@ -3568,6 +3644,7 @@ def main() -> int:
     err_cst[bf16] = max(err_cst[bf16], err_tc["cst"])
     err_wide[bf16] = max(err_wide[bf16], err_tc["wide"])
     check_gradients(gen)
+    print(f"  patch_expand_norm: worst {check_expand_norm():.2f} bf16 ulp of its plain version over the ten shapes")
 
     rng = np.random.default_rng(SEED)
     main_path = [0, 0, 0]  # launches per kernel over the main paths this script drives

@@ -50,6 +50,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..core.device import full_fp32
 from ..ops.conv import conv2d as det_conv2d
+from ..ops.expand_norm import patch_expand_norm, patch_expand_norm_plain
 from ..ops.resize import bilinear_resize
 from ..ops.swin_block import fused_block_autodiff, kernel_plan
 from ..ops.window import (
@@ -504,7 +505,11 @@ class PatchMerging(nn.Module):
 
 
 class PatchExpanding(nn.Module):
-    """2x upsample: Linear(C -> 2C, no bias) -> pixel shuffle -> LN(C/2)."""
+    """2x upsample: Linear(C -> 2C, no bias) -> pixel shuffle -> LN(C/2).
+    Under `torch.inference_mode` (the serving programs) the shuffle and the
+    LayerNorm go to `ops.expand_norm.patch_expand_norm`, one kernel on the
+    card; everywhere else (training, the RL and stage-2 steps' `no_grad`
+    parts, the trainers' evals) the shuffle's copy and `layer_norm`."""
 
     def __init__(self, dim: int, dtype: torch.dtype):
         super().__init__()
@@ -513,10 +518,10 @@ class PatchExpanding(nn.Module):
         self.norm = nn.LayerNorm(dim // 2)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        B, H, W, C = x.shape
-        x = linear(x, self.expand, self.dtype).reshape(B, H, W, 2, 2, C // 2)
-        x = x.permute(0, 1, 3, 2, 4, 5).reshape(B, 2 * H, 2 * W, C // 2)
-        return layer_norm(x, self.norm, self.dtype)
+        x = linear(x, self.expand, self.dtype)
+        if torch.is_inference_mode_enabled():
+            return patch_expand_norm(x, self.norm, self.dtype)
+        return patch_expand_norm_plain(x, self.norm, self.dtype)
 
 
 # ---------------------------------------------------------------------------

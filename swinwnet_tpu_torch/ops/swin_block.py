@@ -69,18 +69,19 @@ def _nvcc() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
-def build(verbose: bool = False, defines: tuple = ()) -> Path:
-    """Compile csrc/swin_block.cu into BUILD_DIR (keyed by the hash of the
-    source and the flags) unless that library exists; returns its path.
-    `defines` are preprocessor names, e.g. ("SWIN_BLOCK_PHASES",)."""
+def build(verbose: bool = False, defines: tuple = (), src: Path = _SRC) -> Path:
+    """Compile `src` (csrc/swin_block.cu, or another source of csrc/) into
+    BUILD_DIR (keyed by the hash of the source and the flags) unless that
+    library exists; returns its path. `defines` are preprocessor names, e.g.
+    ("SWIN_BLOCK_PHASES",)."""
     flags = (*NVCC_FLAGS, *(f"-D{d}" for d in defines))
-    key = hashlib.sha1(_SRC.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"libswin_block_{key}.so"
+    key = hashlib.sha1(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
+    lib = BUILD_DIR / f"lib{src.stem}_{key}.so"
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *flags, *(["-Xptxas", "-v"] if verbose else []), "-o", str(tmp), str(_SRC)]
+    cmd = [_nvcc(), *flags, *(["-Xptxas", "-v"] if verbose else []), "-o", str(tmp), str(src)]
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
