@@ -45,8 +45,10 @@ two timing events, at its first node and its last, and each replay records
 a third on the stream just before its launch; at the program's next call,
 if the last event has completed (`query()`; nothing waits), they give the
 replay's `device.launch_wait` (launch to first node: how long the card
-waited on the host) and `device.graph` records, else the replay counts in
-`graph_events_missed`.
+waited on the host) and `device.graph` records, and one `device.<name>`
+record for each `profiling.device_span` the function entered while it was
+captured (its pair of events, at their offsets from the first node), else
+the replay counts in `graph_events_missed`.
 
 On the CPU (the caller's choice: the CPU has no graphs) a program is its
 function, run eagerly. On a CUDA device nothing falls back: a warm-up or a
@@ -164,10 +166,11 @@ class _Graph:
     """One captured signature: its graph, static inputs and outputs, the
     counts a replay stands for, and its timing events."""
 
-    def __init__(self, graph, inputs, out_struct, outputs, counts, events, device):
+    def __init__(self, graph, inputs, out_struct, outputs, counts, events, spans, device):
         self.graph, self.inputs, self.device = graph, inputs, device
         self.out_struct, self.outputs, self.counts = out_struct, outputs, counts
         self.first, self.last = events
+        self.spans = spans  # (name, start event, end event) of each device span captured
         self.before = torch.cuda.Event(enable_timing=True)
         self.stream = (None, None)  # the raw stream last launched on, and its Stream
         self.launch = None  # the span of a replay whose events are not read yet
@@ -201,8 +204,12 @@ class _Graph:
             return
         wait = round(self.before.elapsed_time(self.first) * 1e6)
         run = round(self.first.elapsed_time(self.last) * 1e6)
-        profiling.record("device.launch_wait", launch, launch.start, launch.start + wait)
-        profiling.record("device.graph", launch, launch.start + wait, launch.start + wait + run)
+        at = launch.start + wait
+        profiling.record("device.launch_wait", launch, launch.start, at)
+        profiling.record("device.graph", launch, at, at + run)
+        for name, start, end in self.spans:
+            offset = round(self.first.elapsed_time(start) * 1e6)
+            profiling.record("device." + name, launch, at + offset, at + offset + round(start.elapsed_time(end) * 1e6))
 
 
 def _fresh(x):
@@ -293,7 +300,8 @@ class Program:
         collecting = gc.isenabled()
         gc.disable()
         try:
-            with torch.cuda.device(device), torch.cuda.graph(graph, pool=self._pool):
+            with torch.cuda.device(device), torch.cuda.graph(graph, pool=self._pool), \
+                    profiling.device_spans() as spans:
                 events[0].record()
                 captured = self.fn(*args)
                 events[1].record()
@@ -311,5 +319,5 @@ class Program:
         static_inputs = [x for x in static if isinstance(x, torch.Tensor)]
         profiling.note_capture(self.name, {entry.__name__: n for entry, n in counts})
         self._graphs[key] = _Graph(graph, static_inputs, out_struct, outputs, [(e, n) for e, n in counts if n],
-                                   events, device)
+                                   events, spans, device)
         return result

@@ -7,7 +7,10 @@ order) over a batch of spectra `[B, n]` at once, returning a fixed-size
 padded peak table per spectrum. The JAX package writes it for one spectrum
 and vmaps it; here every step is batched from the start, and the one
 sequential step, the distance gate, loops over a static count of ranks for
-the whole batch together.
+the whole batch together. The gate is the device span
+`physics.distance_gate` (a `device.physics.distance_gate` record a replay
+of a captured program, such as the RL step) and is counted by
+`distance_gate`.
 
 The host-side spec transcription (`find_peaks_for_batch` etc., used where
 exact scipy parity matters) is :mod:`.host_oracle`'s, re-exported here.
@@ -19,10 +22,12 @@ from typing import Dict
 
 import torch
 
+from ..utils.profiling import Counter, device_span
 from .host_oracle import extract_peak_region, find_peaks_for_batch  # noqa: F401
 from .qwrapper import as_device_tensor
 
 MAX_PEAKS = 64  # static peak-table capacity
+DISTANCE_GATES = Counter("distance_gate")  # passes of the distance gate, one a batch of spectra
 
 
 def _local_maxima_mask(I: torch.Tensor) -> torch.Tensor:
@@ -154,7 +159,9 @@ def find_peaks_device(I, height=0.05, distance=10, prominence=0.1, width=5,
     # scipy.signal.find_peaks applies gates in order: height -> distance -> prominence -> width
     mask = _local_maxima_mask(I)
     mask &= I >= height
-    mask = _enforce_distance(mask, I, distance)
+    DISTANCE_GATES.launches += 1
+    with device_span("physics.distance_gate"):
+        mask = _enforce_distance(mask, I, distance)
     prom = _prominences(I, mask)
     mask &= prom >= prominence
     w = _widths(I, mask, prom)

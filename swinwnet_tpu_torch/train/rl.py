@@ -12,6 +12,11 @@ One step (`rl_step`), on the model's device throughout:
   AdamW (no decay) over what the "rl" stage trains (upscaler_* and
   ca_seg_to_sr).
 
+It returns the step's nine metrics; given a `rollout` dict, it also fills
+it with the per-sample reward and the two images that reward was computed
+on, which `make_rl_train_step` keeps as `RLState.rollout`, so that a check
+can recompute the reward of the very rollouts the program rewarded.
+
 The reward never leaves the card: the reference computes it with scipy on
 the CPU every batch (RL_finetuning_pipline.py:202-230); here it is
 `physics.device_metrics` over `Qwrapper.rebin` spectra, and the step reads
@@ -24,6 +29,12 @@ with weight_decay 0.
 CUDA graph captured once per batch shape that holds the preprocess, the
 rollout and its reward, both backwards and both updates, replayed with one
 host call). `RLTrainer` steps through it.
+
+Tracing: the step's phases are device spans (`utils.profiling.device_span`):
+`rl.preprocess`, `rl.rollout`, `rl.reward` (the two rebins and the
+metrics, whose distance gate is `physics.distance_gate`), `rl.policy_update`
+and `rl.model_update`, a `device.*` record each a replay. The counter
+`rl_reward` counts the rewards computed, one a step.
 
 As the JAX package, the sampled action is detached (standard REINFORCE):
 the reference differentiates log_prob through an rsample, which cancels
@@ -40,7 +51,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -52,15 +63,18 @@ from ..ops.resize import bilinear_downscale_half
 from ..physics.device_metrics import diffraction_metrics_device
 from ..physics.qwrapper import Qwrapper, d_centers_hr
 from ..core.graphs import Program
-from ..utils.profiling import span
+from ..utils.profiling import Counter, device_span, span
 from .freeze import AdamW, masked_adamw
 from .trainers import TrainState, compute_dtype_of
+
+
+REWARDS = Counter("rl_reward")
 
 
 def rl_preprocess(model: SwinWNet, images: torch.Tensor):
     """RL_finetuning_pipline.py:183-191, no gradient: (masked images, norm_lr,
     norm_hr, params_hr, segmentator skips)."""
-    with torch.no_grad():
+    with torch.no_grad(), device_span("rl.preprocess"):
         seg, skips = model.segment_1(images)
         seg_images = images * torch.sigmoid(seg.float())
         norm_lr, _ = normalize_piecewise(bilinear_downscale_half(seg_images))
@@ -71,27 +85,33 @@ def rl_preprocess(model: SwinWNet, images: torch.Tensor):
 def rl_reward(model: SwinWNet, qwrapper: Qwrapper, norm_lr, skips, alpha, params_hr, seg_images,
               lambda_intensity: float, lambda_peak: float, lambda_shape: float):
     """No-grad rollout and its physical reward (:202-230): (reward [B], the
-    metrics' dict)."""
+    metrics' dict, the rollout [B, 1, H, W]). Counted by `rl_reward`."""
     with torch.no_grad():
-        sr_out, _ = model.upscale(norm_lr, skips)
-        sr_out = apply_action(sr_out.float(), alpha)
-        denorm_pred = denormalize_piecewise(sr_out, params_hr)[:, 0:1]
-        pred_spec = qwrapper.rebin(denorm_pred)
-        true_spec = qwrapper.rebin(seg_images[:, 0:1])
-        m = diffraction_metrics_device(pred_spec, true_spec, qwrapper.centers_on(pred_spec.device))
-        total = (lambda_intensity * m["Integral Intensity"] + lambda_peak * m["Peak Intensity"]
-                 + lambda_shape * m["Shape"])
-    return -total, m
+        with device_span("rl.rollout"):
+            sr_out, _ = model.upscale(norm_lr, skips)
+            sr_out = apply_action(sr_out.float(), alpha)
+            denorm_pred = denormalize_piecewise(sr_out, params_hr)[:, 0:1]
+        REWARDS.launches += 1
+        with device_span("rl.reward"):
+            pred_spec = qwrapper.rebin(denorm_pred)
+            true_spec = qwrapper.rebin(seg_images[:, 0:1])
+            m = diffraction_metrics_device(pred_spec, true_spec, qwrapper.centers_on(pred_spec.device))
+            total = (lambda_intensity * m["Integral Intensity"] + lambda_peak * m["Peak Intensity"]
+                     + lambda_shape * m["Shape"])
+    return -total, m, denorm_pred
 
 
 def rl_step(model: SwinWNet, policy: AlphaPolicy, model_opt: AdamW, policy_opt: AdamW,
             qwrapper: Qwrapper, images: torch.Tensor, noise: torch.Tensor, lambda_rec: float = 10.0,
             lambda_intensity: float = 2.0, lambda_peak: float = 1.0,
-            lambda_shape: float = 0.5) -> Dict[str, torch.Tensor]:
+            lambda_shape: float = 0.5,
+            rollout: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
     """One REINFORCE step on `images` [B, 1|2, H, W] with `noise` [B, 1],
     both on the model's device; updates the policy and the model in place
     and returns the metrics of `swinwnet_tpu/train/rl.py:137-147` (0-d
-    tensors on the device). The weights are `make_rl_train_step`'s."""
+    tensors on the device). `rollout`, where given, receives `reward` [B]
+    and the rewarded rollout `pred` and masked image `true`, [B, 1, H, W].
+    The weights are `make_rl_train_step`'s."""
     images = ensure_2ch(images)
     seg_images, norm_lr, norm_hr, params_hr, skips = rl_preprocess(model, images)
 
@@ -99,23 +119,27 @@ def rl_step(model: SwinWNet, policy: AlphaPolicy, model_opt: AdamW, policy_opt: 
     mu, std = policy(norm_lr)
     alpha = mu.detach() + std * noise  # sampled action
     log_prob = (-0.5 * ((alpha - mu) / std) ** 2 - torch.log(std) - 0.5 * math.log(2 * math.pi)).sum(1)
-    reward, m = rl_reward(model, qwrapper, norm_lr, skips, alpha.detach(), params_hr, seg_images,
-                          lambda_intensity, lambda_peak, lambda_shape)
-    policy_loss = -(log_prob * reward).mean()
-    policy_opt.zero_grad()
-    policy_loss.backward()
-    policy_opt.step()
+    reward, m, pred = rl_reward(model, qwrapper, norm_lr, skips, alpha.detach(), params_hr, seg_images,
+                                lambda_intensity, lambda_peak, lambda_shape)
+    with device_span("rl.policy_update"):
+        policy_loss = -(log_prob * reward).mean()
+        policy_opt.zero_grad()
+        policy_loss.backward()
+        policy_opt.step()
 
     # ---- supervised model update (:244-258) ----
-    sr_out, _ = model.upscale(norm_lr, skips)
-    sr_out = apply_action(sr_out.float(), mu.detach())
-    rec = torch.mean(torch.abs(sr_out - norm_hr))  # F.l1_loss
-    sup_loss = lambda_rec * rec
-    model_opt.zero_grad()
-    sup_loss.backward()
-    model_opt.step()
+    with device_span("rl.model_update"):
+        sr_out, _ = model.upscale(norm_lr, skips)
+        sr_out = apply_action(sr_out.float(), mu.detach())
+        rec = torch.mean(torch.abs(sr_out - norm_hr))  # F.l1_loss
+        sup_loss = lambda_rec * rec
+        model_opt.zero_grad()
+        sup_loss.backward()
+        model_opt.step()
 
     alpha = alpha.detach()
+    if rollout is not None:
+        rollout.update(reward=reward, pred=pred, true=seg_images[:, 0:1])
     return {
         "reward": reward.mean(),
         "rec": rec.detach(),
@@ -132,11 +156,14 @@ def rl_step(model: SwinWNet, policy: AlphaPolicy, model_opt: AdamW, policy_opt: 
 @dataclasses.dataclass(eq=False)
 class RLState:
     """The JAX `RLState`: the model's and the policy's `TrainState`s and
-    `rng`, the generator the step draws its noise from (the JAX PRNG key)."""
+    `rng`, the generator the step draws its noise from (the JAX PRNG key);
+    `rollout`, the last step's (what `rl_step` fills; None before the
+    first)."""
 
     model: TrainState
     policy: TrainState
     rng: torch.Generator
+    rollout: Optional[Dict[str, torch.Tensor]] = None
 
 
 def _rl_state_tensors(state: RLState, *_):
@@ -164,9 +191,11 @@ def make_rl_train_step(model: SwinWNet, policy: AlphaPolicy, model_tx: AdamW, po
                    lambda_shape=lambda_shape)
 
     def run(state: RLState, images, noise):
+        rollout: Dict[str, torch.Tensor] = {}
         with compute_dtype_of(model, compute_dtype):
-            return rl_step(model, policy, state.model.opt_state, state.policy.opt_state, qwrapper, images, noise,
-                           **lambdas)
+            metrics = rl_step(model, policy, state.model.opt_state, state.policy.opt_state, qwrapper, images, noise,
+                              **lambdas, rollout=rollout)
+        return metrics, rollout
 
     program = Program(run, modules=(model, policy), state=_rl_state_tensors)
 
@@ -176,7 +205,8 @@ def make_rl_train_step(model: SwinWNet, policy: AlphaPolicy, model_tx: AdamW, po
                 device = next(model.parameters()).device
                 images = torch.as_tensor(images).to(device=device, dtype=torch.float32)
                 noise = draw_noise(state.rng, images.shape[0], device)
-            return state, program(state, images, noise)
+            metrics, state.rollout = program(state, images, noise)
+            return state, metrics
 
     return step
 

@@ -22,6 +22,13 @@ before a graph's launch to the graph's first node; `device.graph`: from its
 first node to its last), their start the host's time at the launch, their
 parent the `program.launch` span of that replay.
 
+Device spans. `with device_span(name):` inside a function that a `Program`
+captures records a pair of timing events into the graph around the
+enclosed work, and each replay gives a `device.<name>` record: its start
+and length the pair's offsets from the graph's first node, within that
+replay's `device.graph`. Run eagerly (the warm-up, `run_eagerly`, the CPU)
+it is a host `span(name)`.
+
 Counters. A counter is any object with an int `launches` and a `__name__`
 (the fused Swin-block entries of `ops/swin_block.py`, the `Counter`s of
 `models/layers.py`); `count_launches_of` registers it, and a graph that
@@ -39,7 +46,7 @@ import json
 import os
 import threading
 from time import perf_counter_ns
-from typing import Any, Dict, List, NamedTuple, Optional
+from typing import Any, Dict, Iterator, List, NamedTuple, Optional
 
 import torch
 import torch.autograd.profiler as _autograd_profiler
@@ -117,6 +124,54 @@ def record(name: str, parent: span, start_ns: int, end_ns: int) -> None:
     child, in its request, with its arg, profiled if it was."""
     _ring[next(_writes) & _MASK] = (next(_seq), name, parent.seq, parent.request, start_ns, end_ns,
                                     parent.annotation is not None, parent.arg)
+
+
+class _Capturing(threading.local):
+    def __init__(self):
+        self.pairs: List[List[tuple]] = []
+
+
+_capturing = _Capturing()
+
+
+@contextlib.contextmanager
+def device_spans() -> Iterator[List[tuple]]:
+    """The block is a graph's capture: the device spans entered in it append
+    (name, start event, end event) to the list yielded."""
+    pairs: List[tuple] = []
+    _capturing.pairs.append(pairs)
+    try:
+        yield pairs
+    finally:
+        _capturing.pairs.pop()
+
+
+class device_span:
+    """A span of the device's work in the enclosed block where a graph is
+    being captured, else a host `span` (see the module docstring)."""
+
+    __slots__ = ("name", "host", "pair")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self) -> "device_span":
+        if _capturing.pairs:
+            self.host = None
+            self.pair = (self.name, torch.cuda.Event(enable_timing=True, external=True),
+                         torch.cuda.Event(enable_timing=True, external=True))
+            self.pair[1].record()
+        else:
+            self.host = span(self.name)
+            self.host.__enter__()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        if self.host is not None:
+            self.host.__exit__(*exc)
+            return
+        self.pair[2].record()
+        _capturing.pairs[-1].append(self.pair)
 
 
 class Counter:
