@@ -5,8 +5,9 @@
 
 1. builds the fused Swin-block kernels (ops/csrc/swin_block.cu) with nvcc and
    checks in its SASS (cuobjdump) that every instance of the Hopper body has
-   wgmma (HGMMA) and a TMA or bulk-copy load (UTMALDG, UBLKCP), and the
-   fp32-FMA body none of these nor HMMA;
+   wgmma (HGMMA) and a TMA or bulk-copy load (UTMALDG, UBLKCP), every one of
+   the narrow body mma.sync (HMMA) and no wgmma, and the fp32-FMA body none
+   of these;
 2. holds each kernel against its plain PyTorch version on the card, in bf16
    and fp32: `fused_swin_block_cst` at the five shapes the serving pipeline
    gives it, the five the RL step's half-size upscale gives it at B=4
@@ -15,11 +16,12 @@
    (row-major) at every signature the gate sends to it with fused_deep in fp32 and with
    one window, one fewer and one more than a CTA takes,
    `fused_swin_block_wide` at its four on-path shapes, each also at a window
-   count no CTA size divides; the bf16 Hopper body of cst and wide at
-   every on-path shape with all weights stored [out, in] and all [in, out],
-   at one window fewer, as many and one more than a batch, at a count whose
-   ragged last batch is the second its persistent CTA takes, and with
-   the output over the input; and the differentiable block's gradients
+   count no CTA size divides; the bf16 tensor-core bodies of cst and wide
+   (the narrow body at C <= 24, the Hopper body above) at every on-path
+   shape with all weights stored [out, in] and all [in, out], at one window
+   fewer, as many and one more than a batch, at a count whose ragged last
+   batch is the second its persistent CTA or warp takes, and with the
+   output over the input; and the differentiable block's gradients
    against autograd through the plain fp32 reference, per layout; then
    `patch_expand_norm` (PatchExpanding's shuffle and LayerNorm,
    ops/csrc/expand_norm.cu) against `patch_expand_norm_plain` at the five
@@ -677,14 +679,17 @@ def in_out_args(args):
 
 
 def second_stage_windows(plan):
-    """A window count whose last, ragged batch is the second its CTA takes:
-    the persistent grid is as many CTAs as fit the card at once."""
+    """A window count whose last, ragged batch is the second its CTA (the
+    Hopper body) or warp (the narrow body) takes: the persistent grid is as
+    many CTAs as fit the card at once."""
     ctas = plan.min_ctas * torch.cuda.get_device_properties(0).multi_processor_count
-    return plan.WB * (ctas + 5) + max(1, plan.WB // 2)
+    walkers = ctas * (plan.threads // 32 if plan.body == 2 else 1)
+    return plan.WB * (walkers + 5) + max(1, plan.WB // 2)
 
 
 def check_tensor_cores(gen):
-    """The bf16 Hopper body (cst and wide, C <= 96) at every on-path
+    """The bf16 tensor-core bodies (cst and wide: the narrow body at C <= 24,
+    the Hopper body above, up to 96) at every on-path
     shape with all four weights stored [out, in] and all [in, out]; at one
     window fewer, as many and one more than its CTA takes (cst with a random
     pad mask); and with the output written over the input (the launcher
@@ -695,8 +700,8 @@ def check_tensor_cores(gen):
     shapes = [("cst", *lv[:4]) for lv in LEVELS] + [("wide", *lv) for lv in WIDE_LEVELS]
     for entry, name, C, nH, grid in shapes:
         plan = sb.kernel_plan(C, nH, bf16)
-        if plan.body != 1:
-            raise SystemExit(f"{entry} at C={C} nH={nH} does not take the Hopper body: {plan}")
+        if plan.body != (2 if C <= sb.NARROW_MAX_C else 1):
+            raise SystemExit(f"{entry} at C={C} nH={nH} does not take its tensor-core body: {plan}")
         xt, args, mask = level_args(C, nH, grid, 1, bf16, gen)
         # one window fewer, as many and one more than a batch; and a count whose
         # last batch is ragged and the second of its CTA (stage 1 of the pipeline)
@@ -770,17 +775,22 @@ def sass_ops(lib):
 
 
 def check_sass(lib):
-    """The bf16 tensor-core instances (the Hopper body) have wgmma (HGMMA)
-    and a TMA or bulk-copy load (UTMALDG or UBLKCP); the fp32-FMA body's
-    instances have no tensor-core or TMA instruction."""
+    """The bf16 tensor-core instances of the Hopper body have wgmma (HGMMA)
+    and a TMA or bulk-copy load (UTMALDG or UBLKCP), those of the narrow body
+    mma.sync (HMMA) and no wgmma; the fp32-FMA body's instances have no
+    tensor-core or TMA instruction."""
     counts = sass_ops(lib)
-    hopper = {k: v for k, v in counts.items() if "swin_block_hopper_kernel" in k}
+    narrow = {k: v for k, v in counts.items() if "swin_block_hopper_kernel_narrow" in k}
+    hopper = {k: v for k, v in counts.items() if "swin_block_hopper_kernel" in k and k not in narrow}
     fma = {k: v for k, v in counts.items() if "swin_block_kernel" in k}
     print(f"  SASS: Hopper body instances {[tuple(v[op] for op in SASS_OPS) for v in hopper.values()]} "
-          f"({', '.join(SASS_OPS)}); fp32-FMA body instances "
+          f"({', '.join(SASS_OPS)}); narrow body instances {sorted(tuple(v[op] for op in SASS_OPS) for v in narrow.values())} "
+          f"({len(narrow)} instances); fp32-FMA body instances "
           f"{sorted(tuple(v[op] for op in SASS_OPS) for v in fma.values())} ({len(fma)} instances)")
     if not hopper or any(v["HGMMA"] == 0 or v["UTMALDG"] + v["UBLKCP"] == 0 for v in hopper.values()):
         raise SystemExit("a Hopper body instance has no HGMMA or no TMA / bulk-copy load")
+    if len(narrow) != len(sb.NARROW_SHAPES) or any(v["HMMA"] == 0 or v["HGMMA"] for v in narrow.values()):
+        raise SystemExit("a narrow body instance is missing, has no HMMA or has HGMMA")
     if not fma or any(sum(v.values()) for v in fma.values()):
         raise SystemExit("an fp32-FMA body instance has tensor-core or TMA instructions")
 
@@ -3069,6 +3079,9 @@ def plan_text(C, nH, dtype, round_qkv=True):
     """A launch's plan, which body it takes, its registers and CTAs an SM."""
     p = sb.kernel_plan(C, nH, dtype, round_qkv)
     regs, ctas = sb.kernel_info(C, nH, dtype, round_qkv)
+    if p.body == 2:
+        return (f"narrow body: {p.WB} window(s) a warp, {p.threads // 32} warps a CTA, head width {p.CN} padded "
+                f"to {p.ldq}, {p.smem_bytes} B shared, {regs} registers, {ctas} CTAs an SM (planned {p.min_ctas})")
     if p.body == 1:
         weights = f"a ring of {p.ring} weight slots" if p.ring else "weights resident"
         return (f"Hopper body: WB={p.WB} G={p.G}{'x3 parts' if p.parts == 3 else ''} HC={p.HC} {p.mp} rows padded, "

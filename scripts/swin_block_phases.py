@@ -17,11 +17,14 @@ and CTAs an SM (the occupancy calculator), and the mean cycles per window
 batch (one batch a CTA, or several for a CTA that walks batches) of each
 phase, the products' cycles split into copy start, copy wait, barrier, the
 FMA loop and epilogue, and the FFMA rate inside the loops. The counters slow the kernel by a few percent;
-chip_smoke.py times the kernel without them. The bf16 launches run the
-Hopper body, whose counters are its consumer thread 0's phases (window wait,
-load + LN1, weight wait, wgmma, epilogues, named-barrier waits, attention,
-output staging) and its two producer warps' (waits, stores, TMA requests),
-printed per window batch.
+chip_smoke.py times the kernel without them. The bf16 launches above C = 24
+run the Hopper body, whose counters are its consumer thread 0's phases
+(window wait, load + LN1, weight wait, wgmma, epilogues, named-barrier waits,
+attention, output staging) and its two producer warps' (waits, stores, TMA
+requests), printed per window batch; those at C <= 24 the narrow body, whose
+counters are lane 0 of each CTA's first warp (copy wait, rows + LN1, qkv,
+scores + softmax, E.V, proj + residual + LN2, MLP, output + store, next
+loads), printed per window that warp owns.
 """
 
 from __future__ import annotations
@@ -47,6 +50,19 @@ HOPPER_CONSUMER = ["window wait", "load + LN1", "weight wait", "wgmma", "qkv epi
                    "barriers", "attention", "proj epilogue + LN2", "fc1 epilogue (GELU)", "output staging"]
 HOPPER_WINDOW = ["wait for a batch's output", "store", "next load"]
 HOPPER_WEIGHT = ["wait for a free slot", "TMA requests"]
+# the narrow body's counters: lane 0 of each CTA's first warp, by phase of
+# each window it owns (the unit's waits, loads and store counted once a unit)
+NARROW = ["copy wait", "rows + LN1", "qkv", "scores + softmax", "E.V", "proj + residual + LN2", "MLP",
+          "output + store", "next loads"]
+
+
+def first_warp_windows(plan, Wt, ctas_sm):
+    """Windows the first warp of every CTA of a narrow-body launch owns, summed
+    over the grid (as the launcher sizes it)."""
+    warps = plan.threads // 32
+    units = -(-Wt // plan.WB)
+    grid = min(-(-units // warps), ctas_sm * torch.cuda.get_device_properties(0).multi_processor_count)
+    return sum(min(plan.WB, Wt - u * plan.WB) for b in range(grid) for u in range(b * warps, units, grid * warps))
 
 
 def measure(lib, counters, tag, name, run, C, nH, Wt, dtype, round_qkv):
@@ -62,6 +78,14 @@ def measure(lib, counters, tag, name, run, C, nH, Wt, dtype, round_qkv):
     regs, ctas_sm = sb.kernel_info(C, nH, dtype, round_qkv, lib)
     batches = -(-Wt // plan.WB)
     per = [c / batches for c in counters]
+    if plan.body == 2:
+        per = [c / first_warp_windows(plan, Wt, ctas_sm) for c in counters]
+        total = sum(per[:9])
+        print(f"  {tag:4s} {name:13s} C={C:3d} nH={nH:2d} Wt={Wt:5d} {ms:.4f} ms  narrow body, {plan.WB} window(s) a "
+              f"warp, {plan.threads // 32} warps a CTA, {plan.smem_bytes} B shared, {regs} registers, {ctas_sm} CTAs "
+              f"an SM, {total:.0f} cycles a window of one warp")
+        print("    " + "  ".join(f"{n} {100 * c / total:.1f}%" for n, c in zip(NARROW, per)))
+        return
     if plan.body == 1:
         # a consumer's cycles per batch, and the producers' per batch of the CTA
         total = sum(per[:10])

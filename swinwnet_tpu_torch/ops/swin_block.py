@@ -46,7 +46,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core.device import full_fp32
-from ..core.graphs import count_launches_of
+from ..core.graphs import Counter, count_launches_of
 
 WINDOW_TOKENS = 25
 
@@ -102,8 +102,10 @@ def bind(path: Path):
         + [P]
     )
     lib.swin_block_launch.restype = I
-    lib.swin_block_info.argtypes = [I] * 8 + [ctypes.POINTER(I)] * 2
+    lib.swin_block_info.argtypes = [I] * 10 + [ctypes.POINTER(I)] * 2
     lib.swin_block_info.restype = I
+    lib.swin_block_erf_check.argtypes = [P, P]
+    lib.swin_block_erf_check.restype = I
     return lib
 
 
@@ -124,21 +126,26 @@ _MAX_WB = 8  # at most 200 rows a CTA
 class KernelPlan(NamedTuple):
     """How one CTA of the Swin-block kernel is cut (see csrc/swin_block.cu)."""
 
-    WB: int  # windows a CTA: M = 25 * WB rows
-    G: int  # heads per qkv/attention group
+    WB: int  # windows a CTA: M = 25 * WB rows (the narrow body: windows a warp's unit)
+    G: int  # heads per qkv/attention group (the narrow body: all heads)
     HC: int  # MLP hidden columns per chunk
-    KC: int  # k extent of a staged weight tile (the fp32-FMA body)
-    OT: int  # output columns of a staged weight tile (the fp32-FMA body)
-    CN: int  # output columns a thread holds, its register tile 5 x CN (the Hopper body: its widest product, 48 or 96)
+    KC: int  # k extent of a staged weight tile (the fp32-FMA body; the narrow body: an mma tile's, 16)
+    OT: int  # output columns of a staged weight tile (the fp32-FMA body; the narrow body: an mma tile's, 8)
+    # output columns a thread holds, its register tile 5 x CN (the Hopper body: its widest product, 48 or 96;
+    # the narrow body: the head width, which with C names its instance)
+    CN: int
     threads: int
     smem_bytes: int
-    lda: int  # row stride of the two [M, C] buffers, floats (the Hopper body: of A1 and A2, bf16 elements)
-    ldq: int  # row stride of the qkv / hidden chunk, floats (the Hopper body: of its q|k|v rows, bf16 elements)
+    lda: int  # row stride of the two [M, C] buffers, floats (the Hopper body: of A1 and A2, bf16 elements; narrow: C)
+    # row stride of the qkv / hidden chunk, floats (the Hopper body: of its q|k|v rows, bf16 elements; the
+    # narrow body: a head's columns padded to a multiple of 8)
+    ldq: int
     offsets: tuple  # byte offsets of ys, os, the chunk and the weight ring
-    # (the Hopper body: of the fp32 parameters, the rel-pos bias, two window stages, A1, A2, the chunk, the weights)
-    body: int = 0  # 0: the fp32-FMA body; 1: the Hopper body (wgmma, TMA, warp-specialised)
-    mp: int = 0  # the Hopper body: rows a batch padded to 64
-    min_ctas: int = 1  # CTAs an SM the plan counts on (the Hopper body: 1 or 2)
+    # (the Hopper body: of the fp32 parameters, the rel-pos bias, two window stages, A1, A2, the chunk, the weights;
+    # the narrow body: of the fp32 parameters, the rel-pos bias and the warps' stages, the weights at 0)
+    body: int = 0  # 0: the fp32-FMA body; 1: the Hopper body (wgmma, TMA, warp-specialised); 2: the narrow body
+    mp: int = 0  # the Hopper body: rows a batch padded to 64 (the narrow body: a window's 25 rows padded to 32)
+    min_ctas: int = 1  # CTAs an SM the plan counts on (the Hopper body: 1 or 2; the narrow body: 2)
     # the Hopper body: consumer warpgroups (rows / 64), weight ring
     # slots (0: all weights resident), qkv parts per head group (1, or 3 when
     # a group's q|k|v is wider than the body holds), and the swizzle spans:
@@ -266,8 +273,8 @@ def _hopper_heads(C, num_heads, HC, maxn, streamed):
 
 # the Hopper body's instances with fixed widths, as hopper_instance in the
 # .cu builds them: (C, a qkv product's output columns, HC) -> variant; one
-# for each bf16 serving level's width
-HOPPER_VARIANTS = {(12, 36, 48): 1, (24, 24, 48): 2, (48, 48, 48): 3, (96, 96, 96): 4}
+# for each bf16 serving level's width above NARROW_MAX_C
+HOPPER_VARIANTS = {(48, 48, 48): 3, (96, 96, 96): 4}
 
 
 def hopper_variant(C, num_heads, G, HC, parts) -> int:
@@ -309,6 +316,63 @@ def _hopper_plan(C, num_heads):
                       nwg, ring, parts, spans, hopper_variant(C, num_heads, G, HC, parts))
 
 
+# ---------------------------------------------------------------------------
+# The narrow body's plan and its shared-memory layout, mirroring NShape and
+# narrow_instance in csrc/swin_block.cu
+# ---------------------------------------------------------------------------
+
+NARROW_MAX_C = 24  # the widest bf16 level the narrow body takes (C = 12 and 24 serve)
+NARROW_THREADS = 256  # 8 warps a CTA, each owning whole windows
+NARROW_STAGES = 3  # units a warp holds: the one it computes and the next two in flight
+# (C, head width) of every instance NB_SHAPES in the .cu builds: each width
+# up to NARROW_MAX_C with each head width (a multiple of 4) that divides it
+NARROW_SHAPES = tuple((C, hd) for C in range(4, NARROW_MAX_C + 1, 4) for hd in range(4, C + 1, 4) if C % hd == 0)
+
+
+def narrow_tiles(C, num_heads):
+    """The narrow body's 16-row attention tiles a window: two a head, or,
+    with heads of at most 8 columns and 3 or 4 of them (NShape::PACK), one
+    a head for its rows 0-15 and the heads' rows 16-24 packed two halves a
+    tile (each head's rows 16-23, then row 24 of every head)."""
+    packed = C // num_heads <= 8 and 3 <= num_heads <= 4
+    return num_heads + (num_heads + 2) // 2 if packed else 2 * num_heads
+
+
+def _narrow_layout(C, num_heads):
+    """(bytes, offsets) of the narrow body's shared memory, as NShape lays it
+    out: the weights as mma B fragments (qkv, proj, fc1, fc2: 256 bytes a
+    16 x 8 tile), the fp32 parameters, the rel-pos bias as accumulator
+    fragments (2 KB an attention tile), then each warp's stages of a unit's
+    windows and their pad-mask values. Offsets: parameters, rel-pos bias,
+    stages."""
+    hd = C // num_heads
+    HT = -(-hd // 8)
+    NT, KT, U, NC = -(-C // 8), -(-C // 16), num_heads * HT, C // 4
+    WPW = 2 if C % 8 else 1
+    frags = KT * 3 * U + -(-U // 2) * NT + KT * 2 * NC + NC * NT
+    par = _round_up(4 * (48 * NT + 24 * U + 4 * C), 16)
+    stage = _round_up(WPW * WINDOW_TOKENS * C * 2, 16) + _round_up(WPW * WINDOW_TOKENS * 4, 16)
+    off_par = 256 * frags
+    offsets = (off_par, off_par + par, off_par + par + narrow_tiles(C, num_heads) * 2048)
+    return offsets[-1] + (NARROW_THREADS // 32) * NARROW_STAGES * stage, offsets
+
+
+def _narrow_plan(C, num_heads):
+    """The narrow body's plan: a warp owns whole windows, WB = 1 or 2 a unit
+    (two where one window's 50 C bytes are not a whole number of 16-byte
+    units), products on mma.sync m16n8k16 tiles (25 rows padded to 32, each
+    head's columns padded to a multiple of 8), weights resident, two CTAs
+    of 256 threads an SM."""
+    hd = C // num_heads
+    if (C, hd) not in NARROW_SHAPES:
+        raise ValueError(f"no instance of the narrow body at C={C}, num_heads={num_heads}")
+    nbytes, offsets = _narrow_layout(C, num_heads)
+    if nbytes > SMEM_TWO_CTAS:
+        raise ValueError(f"the narrow body does not fit two CTAs an SM at C={C}, num_heads={num_heads}")
+    return KernelPlan(2 if C % 8 else 1, num_heads, 16, 16, 8, hd, NARROW_THREADS, nbytes, C, 8 * -(-hd // 8),
+                      offsets, 2, 32, 2)
+
+
 def io_route(t, WB: int) -> int:
     """How the Hopper body moves the [C, N, Wt] view t's windows, as
     window_map in the .cu checks it: 2 a TMA box [WB][N][C] (channels
@@ -334,7 +398,8 @@ def io_route(t, WB: int) -> int:
 @functools.lru_cache(maxsize=None)
 def kernel_plan(C: int, num_heads: int, dtype: torch.dtype, round_qkv: bool = True) -> KernelPlan:
     """The kernel's plan for width C. bf16 with qkv rounded (the cst and wide
-    entries) at C <= 96 takes the Hopper body (`_hopper_plan`). Any other
+    entries) takes the narrow body at C <= 24 (`_narrow_plan`) and the
+    Hopper body above, up to C = 96 (`_hopper_plan`). Any other
     launch takes the fp32-FMA body: as many windows a CTA as keep M * C near
     9600 elements (4 at C = 96, 2 at C = 192, 1 from C = 384), an output tile
     OT that gives every thread one 5 x CN register tile (5 * WB * OT / CN <=
@@ -345,6 +410,8 @@ def kernel_plan(C: int, num_heads: int, dtype: torch.dtype, round_qkv: bool = Tr
         raise TypeError(f"no kernel for {dtype}")
     if C <= 0 or C % num_heads or (C // num_heads) % 4:
         raise ValueError(f"the kernel takes a head width that is a multiple of 4, got C={C}, num_heads={num_heads}")
+    if dtype == torch.bfloat16 and round_qkv and C <= NARROW_MAX_C:
+        return _narrow_plan(C, num_heads)
     if dtype == torch.bfloat16 and round_qkv and (C <= 48 or (C <= MMA_MAX_C and C % 16 == 0)):
         return _hopper_plan(C, num_heads)
     itemsize = 4 if dtype == torch.float32 else 2
@@ -375,7 +442,7 @@ def kernel_info(C: int, num_heads: int, dtype: torch.dtype, round_qkv: bool = Tr
     plan = kernel_plan(C, num_heads, dtype, round_qkv)
     lib = lib or _load()
     regs, ctas = ctypes.c_int(0), ctypes.c_int(0)
-    err = lib.swin_block_info(int(dtype == torch.bfloat16), int(round_qkv), plan.body, plan.min_ctas, plan.CN,
+    err = lib.swin_block_info(int(dtype == torch.bfloat16), int(round_qkv), C, num_heads, plan.body, plan.min_ctas, plan.CN,
                               plan.threads, plan.smem_bytes, plan.variant, ctypes.byref(regs), ctypes.byref(ctas))
     if err != 0:
         raise RuntimeError(f"swin_block_info failed with code {err} (C={C}, nH={num_heads})")
@@ -556,6 +623,8 @@ def _launch(entry, x_cnw, out_cnw, mask_nw, weights_oi, fp32_params, num_heads, 
     if err != 0:
         raise RuntimeError(f"swin_block_launch failed with code {err} (C={C}, nH={num_heads}, Wt={Wt})")
     entry.launches += 1
+    if plan.body == 2:
+        NARROW_LAUNCHES.launches += 1
 
 
 def fused_swin_block_cst(
@@ -638,6 +707,8 @@ def fused_swin_block_wide(
 
 KERNELS = (fused_swin_block_cst, fused_swin_block, fused_swin_block_wide)
 count_launches_of(*KERNELS)
+# launches of the narrow body (through the cst or wide entry), besides the entry's own count
+NARROW_LAUNCHES = Counter("swin_block_narrow")
 
 
 def reset_counts() -> None:

@@ -314,13 +314,15 @@ def test_tensor_core_wide_at_ragged_window_counts(cuda, C, nH, linear_layout):
 @pytest.mark.parametrize("entry", ["cst", "wide"])
 @pytest.mark.parametrize("C,nH", TC_SHAPES)
 def test_tensor_core_ragged_batch_in_the_second_stage(cuda, C, nH, entry):
-    """The Hopper body's pipeline: a window count whose last batch is ragged
-    and the second its persistent CTA takes (loaded into the second stage
-    while the first computes), and one a batch longer."""
+    """The persistent bodies' pipelines: a window count whose last batch is
+    ragged and the second its persistent CTA (the Hopper body) or warp (the
+    narrow body, 8 a CTA) takes, loaded into the second stage while the
+    first computes, and one a batch longer."""
     plan = sb.kernel_plan(C, nH, torch.bfloat16)
-    assert plan.body == 1
+    assert plan.body in (1, 2)
     ctas = plan.min_ctas * torch.cuda.get_device_properties(0).multi_processor_count
-    for Wt in (plan.WB * (ctas + 5) + max(1, plan.WB // 2), plan.WB * (ctas + 6) + max(1, plan.WB // 2)):
+    walkers = ctas * (plan.threads // 32 if plan.body == 2 else 1)
+    for Wt in (plan.WB * (walkers + 5) + max(1, plan.WB // 2), plan.WB * (walkers + 6) + max(1, plan.WB // 2)):
         if entry == "cst":
             args, g = _cst_operands(cuda, C, nH, C + nH + Wt, "in_out")
             x = torch.randn(Wt, N, C, generator=g).to(torch.bfloat16).to(cuda).permute(2, 1, 0)
@@ -341,12 +343,16 @@ def test_tensor_core_ragged_batch_in_the_second_stage(cuda, C, nH, entry):
 @pytest.mark.parametrize("stored", ["out_in", "in_out"])
 @pytest.mark.parametrize("C,nH", [(4, 1), (16, 4), (32, 1), (40, 5), (64, 4), (80, 5), (96, 1), (96, 12)])
 def test_tensor_core_cst_at_other_widths(cuda, C, nH, stored):
-    """The Hopper body at widths no serving level has: the instance that
-    reads its widths at run time, or one that fixes them where they agree
-    (C = 96 with 1 or 12 heads), qkv in one product or three parts,
-    resident and streamed weights, stored either way."""
+    """The tensor-core bodies at widths no serving level has: the narrow
+    body's instance of the width and head width (C <= 24); the Hopper
+    body's instance that reads its widths at run time, or one that fixes
+    them where they agree (C = 96 with 1 or 12 heads), qkv in one product or
+    three parts, resident and streamed weights; stored either way."""
     plan = sb.kernel_plan(C, nH, torch.bfloat16)
-    assert plan.body == 1 and plan.variant == (4 if C == 96 else 0)
+    if C <= sb.NARROW_MAX_C:
+        assert plan.body == 2
+    else:
+        assert plan.body == 1 and plan.variant == (4 if C == 96 else 0)
     args, g = _cst_operands(cuda, C, nH, C + nH, stored)
     for Wt in (plan.WB + 1, 1201):
         x = torch.randn(Wt, N, C, generator=g).to(torch.bfloat16).to(cuda).permute(2, 1, 0)
@@ -373,6 +379,141 @@ def test_tensor_core_output_may_alias_the_input(cuda, C, nH):
     sb._launch(sb.fused_swin_block_cst, x, x, mask, weights_oi, fp32, nH, True, True)
     torch.cuda.synchronize()
     assert (x.float() - ref.float()).abs().max().item() <= 2e-2 * ref.float().abs().max().item()
+
+
+# ---------------------------------------------------------------------------
+# The narrow body (bf16 cst and wide at C <= 24) against swin_block_plain
+# ---------------------------------------------------------------------------
+
+# (C, nH): the SR head's two levels, then other head widths (4 to 24) that
+# other instances of the body take, packed (16, 4) or a head at a time
+NARROW_LEVELS = [(12, 3), (24, 3), (16, 4), (24, 1), (24, 2), (24, 6), (12, 1), (20, 5), (16, 2), (8, 1), (4, 1)]
+
+
+def _narrow_view(layout, Wt, C, g, cuda):
+    """bf16 windows as the [C, N, Wt] view of one storage layout: the
+    token-major windows the models pass (one run of bytes), the same with
+    rows padded to C + 8 channels, the token-slot-major [N, Wt, C] array, the
+    channels-major [C, N, Wt] array, and token-major windows one element
+    past an aligned start (no vector route). Returns the view and its
+    storage, whose other elements the kernel must leave alone."""
+    x = torch.randn(Wt, N, C, generator=g).to(torch.bfloat16)
+    if layout == "token-major":
+        return x.to(cuda).permute(2, 1, 0), None
+    if layout == "padded-rows":
+        base = torch.randn(Wt, N, C + 8, generator=g).to(torch.bfloat16).to(cuda)
+        base[..., :C] = x.to(cuda)
+        return base[..., :C].permute(2, 1, 0), base
+    if layout == "slot-major":
+        return x.transpose(0, 1).contiguous().to(cuda).permute(2, 0, 1), None
+    if layout == "channels-major":
+        return x.permute(2, 1, 0).contiguous().to(cuda), None
+    base = torch.randn(Wt * N * C + 1, generator=g).to(torch.bfloat16).to(cuda)
+    base[1:] = x.to(cuda).reshape(-1)
+    return base[1:].view(Wt, N, C).permute(2, 1, 0), base
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stored", ["out_in", "in_out"])
+@pytest.mark.parametrize("C,nH", NARROW_LEVELS)
+def test_narrow_cst_matches_plain(cuda, C, nH, stored):
+    """The narrow body through the cst entry, weights stored either way, at
+    tiny window counts (fewer windows than a CTA's warps), around a warp's
+    unit of windows, and a prime; with and without a pad mask; one launch,
+    counted on the entry and on swin_block_narrow."""
+    plan = sb.kernel_plan(C, nH, torch.bfloat16)
+    assert plan.body == 2
+    args, g = _cst_operands(cuda, C, nH, 7 * C + nH, stored)
+    for Wt in sorted({1, 2, 3, plan.WB + 1, 17, 1201}):
+        for masked in (False, True):
+            x = torch.randn(Wt, N, C, generator=g).to(torch.bfloat16).to(cuda).permute(2, 1, 0)
+            mask = (torch.rand(N, Wt, generator=g) > 0.3).float().to(cuda) if masked else None
+            keep = x.clone()
+            before = sb.fused_swin_block_cst.launches, sb.NARROW_LAUNCHES.launches
+            out = sb.fused_swin_block_cst(x, *args, num_heads=nH, pad_mask=mask)
+            torch.cuda.synchronize()
+            assert (sb.fused_swin_block_cst.launches, sb.NARROW_LAUNCHES.launches) == (before[0] + 1, before[1] + 1)
+            assert torch.equal(x, keep)
+            ref = sb.swin_block_plain(x, *args, num_heads=nH, pad_mask=mask)
+            tol = 2e-2 * ref.float().abs().max().item()
+            assert (out.float() - ref.float()).abs().max().item() <= tol, f"Wt={Wt} masked={masked}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("linear_layout", [False, True])
+@pytest.mark.parametrize("C,nH", NARROW_LEVELS)
+def test_narrow_wide_matches_plain(cuda, C, nH, linear_layout):
+    """The narrow body through the wide entry ([N, Wt, C] windows), weights
+    stored either way, at tiny, unit-sized and prime window counts."""
+    args, g = _operands(cuda, C, nH, torch.bfloat16, 5 * C + nH, linear_layout)
+    for Wt in sorted({1, 2, 3, 17, 1201}):
+        x = torch.randn(N, Wt, C, generator=g).to(torch.bfloat16).to(cuda)
+        before = sb.NARROW_LAUNCHES.launches
+        out = sb.fused_swin_block_wide(x, *args, num_heads=nH)
+        torch.cuda.synchronize()
+        assert sb.NARROW_LAUNCHES.launches == before + 1
+        ref = sb.swin_block_wide_plain(x, *args, num_heads=nH)
+        tol = 2e-2 * ref.float().abs().max().item()
+        assert (out.float() - ref.float()).abs().max().item() <= tol, f"Wt={Wt}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid", [(52, 96), (26, 48), (13, 7)])
+@pytest.mark.parametrize("C,nH", [(12, 3), (24, 3)])
+def test_narrow_at_padded_grids(cuda, C, nH, grid):
+    """The SR head's levels on grids that do not tile by 5 (the RL step's
+    padded half-size upscale gives such grids), with the pad mask of the
+    grid, at B = 2."""
+    args, g = _cst_operands(cuda, C, nH, C + grid[0], "out_in")
+    m = window_pad_mask_np(*grid, 5)
+    mask = torch.from_numpy(np.tile(m[:, :, 0], (2, 1))).to(cuda).t()
+    Wt = 2 * (-(-grid[0] // 5)) * (-(-grid[1] // 5))
+    x = torch.randn(Wt, N, C, generator=g).to(torch.bfloat16).to(cuda).permute(2, 1, 0)
+    out = sb.fused_swin_block_cst(x, *args, num_heads=nH, pad_mask=mask)
+    torch.cuda.synchronize()
+    ref = sb.swin_block_plain(x, *args, num_heads=nH, pad_mask=mask)
+    assert (out.float() - ref.float()).abs().max().item() <= 2e-2 * ref.float().abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["token-major", "padded-rows", "slot-major", "channels-major", "unaligned"])
+@pytest.mark.parametrize("C,nH", [(12, 3), (24, 3)])
+def test_narrow_every_window_route(cuda, C, nH, layout):
+    """Each way the narrow body moves windows (one run of 16-byte units,
+    8- or 4-channel units, element by element), in and out: the output
+    written over the input through the launcher (the entries always
+    allocate), and, read back, the same as the plain version's on a copy;
+    what lies around the windows is left alone."""
+    args, g = _cst_operands(cuda, C, nH, C + nH + len(layout), "in_out")
+    for Wt in (3, 1201):
+        x, storage = _narrow_view(layout, Wt, C, g, cuda)
+        mask = (torch.rand(N, Wt, generator=g) > 0.3).float().to(cuda)
+        ref = sb.swin_block_plain(x.clone(), *args, num_heads=nH, pad_mask=mask)
+        around = None if storage is None else storage.clone()
+        weights_oi = (args[2], args[5].t(), args[9], args[11])
+        fp32 = (args[0], args[1], args[3], args[6], args[7], args[8], args[10], args[12], args[4])
+        sb._launch(sb.fused_swin_block_cst, x, x, mask, weights_oi, fp32, nH, True, True)
+        torch.cuda.synchronize()
+        assert (x.float() - ref.float()).abs().max().item() <= 2e-2 * ref.float().abs().max().item(), f"Wt={Wt}"
+        if storage is not None:
+            outside = torch.ones_like(storage, dtype=torch.bool)
+            if layout == "padded-rows":
+                outside[..., :C] = False
+            else:
+                outside[1:] = False
+            assert torch.equal(storage[outside], around[outside])
+
+
+@pytest.mark.cuda
+def test_narrow_erf_is_erff_for_every_float(cuda):
+    """The narrow body's GELU evaluates erf with both of the library's
+    polynomials and one select (nb_erf): every one of the 2^32 floats gives
+    erff's bits."""
+    bad = torch.zeros(1, dtype=torch.int64, device=cuda)
+    lib = sb._load()
+    assert lib.swin_block_erf_check(bad.data_ptr(), torch.cuda.current_stream().cuda_stream) == 0
+    torch.cuda.synchronize()
+    assert bad.item() == 0
 
 
 # ---------------------------------------------------------------------------

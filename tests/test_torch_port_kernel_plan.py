@@ -5,12 +5,20 @@ refuses a plan that breaks one; here they are held without a card, for every
 signature the three kernels meet on the serving and training paths and for
 a few odd ones."""
 
+import re
+
 import pytest
 import torch
 
 from swinwnet_tpu_torch.ops.swin_block import (
+    _SRC,
     H_ALIGN,
     H_MAX_RING,
+    HOPPER_VARIANTS,
+    NARROW_MAX_C,
+    NARROW_SHAPES,
+    NARROW_STAGES,
+    NARROW_THREADS,
     SMEM_MAX,
     SMEM_TWO_CTAS,
     WINDOW_TOKENS,
@@ -18,6 +26,7 @@ from swinwnet_tpu_torch.ops.swin_block import (
     hopper_weight_bytes,
     io_route,
     kernel_plan,
+    narrow_tiles,
     span_of,
     swizzle,
     tile_offset,
@@ -40,14 +49,43 @@ def _units16(n):
     return n // 8
 
 
+def _check_narrow_plan(p, C, nH):
+    """The narrow body's invariants (bf16, qkv rounded, C <= 24): the widths
+    and heads it takes, a warp's windows as whole 16-byte units, two CTAs of
+    8 warps an SM within shared memory and the registers, and the layout
+    NShape makes."""
+    hd = C // nH
+    assert p.body == 2 and C <= NARROW_MAX_C and C % nH == 0 and hd % 4 == 0 and (C, hd) in NARROW_SHAPES
+    assert p.CN == hd and p.G == nH and p.ldq == -(-hd // 8) * 8 and p.mp == 32 and p.lda == C
+    # a unit of WB windows is a whole number of 16-byte units, and WB is the least that is
+    assert (p.WB * WINDOW_TOKENS * C * 2) % 16 == 0 and (p.WB == 1 or (WINDOW_TOKENS * C * 2) % 16)
+    # two CTAs of 8 warps an SM: 128 registers a thread (the launch bounds), shared memory for both
+    assert p.threads == NARROW_THREADS == 256 and p.min_ctas == 2 and p.threads * p.min_ctas <= 2048
+    assert p.min_ctas * p.threads * 128 <= 65536
+    assert p.smem_bytes <= SMEM_TWO_CTAS <= SMEM_MAX
+    # layout: weight fragments (a 16 x 8 bf16 tile, 256 bytes), parameters, rel-pos bias, stages
+    HT, NT, KT, NC = -(-hd // 8), -(-C // 8), -(-C // 16), C // 4
+    tiles = KT * 3 * nH * HT + -(-nH * HT // 2) * NT + KT * 2 * NC + NC * NT
+    par, rel, st = p.offsets
+    assert all(off % 16 == 0 for off in p.offsets) and par == 256 * tiles
+    assert rel - par >= 4 * (6 * 8 * NT + 3 * nH * 8 * HT + 4 * C)  # six C-vectors, bqkv permuted, b1
+    # [query tile][key tile] float4 a lane: two tiles a head, or packed (heads of 8 columns or fewer, 3 or 4
+    # of them) one a head and ceil((nH + 1) / 2) for the heads' rows 16-24 (75 query rows in 5 tiles at nH = 3)
+    tiles = nH + (nH + 2) // 2 if hd <= 8 and 3 <= nH <= 4 else 2 * nH
+    assert narrow_tiles(C, nH) == tiles and 16 * tiles >= WINDOW_TOKENS * nH
+    assert st - rel == tiles * 4 * 32 * 16
+    stage = -(-p.WB * WINDOW_TOKENS * C * 2 // 16) * 16 + -(-p.WB * WINDOW_TOKENS * 4 // 16) * 16
+    assert p.smem_bytes == st + (p.threads // 32) * NARROW_STAGES * stage
+
+
 def _check_hopper_plan(p, C, nH):
-    """The Hopper body's invariants (bf16, qkv rounded, C <= 96): 64-row
+    """The Hopper body's invariants (bf16, qkv rounded, 24 < C <= 96): 64-row
     tiles, 227 KB, weights resident at C <= 48, spans that divide each
     operand's row bytes, and the layout h_layout makes."""
     hd = C // nH
     M = WINDOW_TOKENS * p.WB
     maxn = 48 if C <= 48 else 96
-    assert p.body == 1 and p.CN == maxn
+    assert p.body == 1 and p.CN == maxn and C > NARROW_MAX_C
     # rows padded to a multiple of 64, one consumer warpgroup each, and a producer warp pair
     assert p.mp % 64 == 0 and M <= p.mp < M + 64 and p.nwg == p.mp // 64 and p.threads == 128 * p.nwg + 64
     # a batch's token-major windows are whole 16-byte units (one bulk copy)
@@ -96,6 +134,9 @@ def _check_hopper_plan(p, C, nH):
 @pytest.mark.parametrize("C,nH", CASES)
 def test_plan_fits_the_card_and_the_kernel(C, nH, dtype):
     p = kernel_plan(C, nH, dtype)
+    if dtype == torch.bfloat16 and C <= NARROW_MAX_C:
+        _check_narrow_plan(p, C, nH)
+        return
     if dtype == torch.bfloat16 and C <= 96:
         _check_hopper_plan(p, C, nH)
         return
@@ -151,11 +192,14 @@ def test_plan_refuses_what_the_kernel_does_not_take(C, nH, dtype, error):
 @pytest.mark.parametrize("round_qkv", [True, False], ids=["qkv-rounded", "qkv-fp32"])
 @pytest.mark.parametrize("C,nH", CST_LEVELS + WIDE_LEVELS)
 def test_bf16_serving_shapes_take_the_tensor_cores(C, nH, round_qkv):
-    """cst and wide (qkv rounded) in bf16 take the Hopper body; with qkv
-    kept fp32 (the row-major entry) the same width takes the fp32-FMA body's
-    plan, as in fp32 apart from the weights' type."""
+    """cst and wide (qkv rounded) in bf16 take the narrow body at C <= 24
+    and the Hopper body above; with qkv kept fp32 (the row-major entry) the
+    same width takes the fp32-FMA body's plan, as in fp32 apart from the
+    weights' type."""
     p = kernel_plan(C, nH, torch.bfloat16, round_qkv)
-    if round_qkv:
+    if round_qkv and C <= NARROW_MAX_C:
+        _check_narrow_plan(p, C, nH)
+    elif round_qkv:
         _check_hopper_plan(p, C, nH)
     else:
         assert p.body == 0 and p.CN in (4, 8)
@@ -173,16 +217,54 @@ def test_bf16_plan_above_48_off_16_takes_the_fma_body(C, nH):
     assert p.body == 0 and p.min_ctas == 1 and p.CN in (4, 8)
 
 
-# every bf16 width the Hopper body takes: the on-path levels and a spread of
-# others (head widths 4 to 96, qkv in one product or in three parts)
-HOPPER_CASES = sorted(set(CST_LEVELS + WIDE_LEVELS + [(4, 1), (8, 2), (16, 4), (20, 5), (32, 1), (32, 2), (36, 9),
-                                                      (40, 10), (44, 11), (48, 1), (48, 12), (64, 4), (64, 16),
-                                                      (80, 5), (80, 20), (96, 1), (96, 12), (96, 24)]))
+# every (C, num_heads) the narrow body takes: C = 12 and 24 with 3 heads (the SR
+# head's levels) and each other width up to 24 with each head width that divides it
+NARROW_CASES = sorted((C, C // hd) for C, hd in NARROW_SHAPES)
+# bf16 widths the Hopper body takes: the on-path levels above C = 24 and a
+# spread of others (head widths 4 to 96, qkv in one product or in three parts)
+HOPPER_CASES = sorted(set(CST_LEVELS + WIDE_LEVELS + [(32, 1), (32, 2), (36, 9), (40, 10), (44, 11), (48, 1),
+                                                      (48, 12), (64, 4), (64, 16), (80, 5), (80, 20), (96, 1),
+                                                      (96, 12), (96, 24)]) - set(NARROW_CASES))
 
 
 @pytest.mark.parametrize("C,nH", HOPPER_CASES)
 def test_hopper_plan_at_every_width_it_takes(C, nH):
     _check_hopper_plan(kernel_plan(C, nH, torch.bfloat16), C, nH)
+
+
+@pytest.mark.parametrize("C,nH", NARROW_CASES)
+def test_narrow_plan_at_every_width_it_takes(C, nH):
+    _check_narrow_plan(kernel_plan(C, nH, torch.bfloat16), C, nH)
+
+
+def test_narrow_body_takes_every_head_width_up_to_24():
+    """Every bf16 (C, num_heads) up to C = 24 that the kernel takes (a head
+    width that is a multiple of 4) has a narrow instance, and the .cu builds
+    exactly those (NB_SHAPES), as the Python list names them."""
+    want = {(C, hd) for C in range(4, NARROW_MAX_C + 1, 4) for hd in range(4, C + 1, 4) if C % hd == 0}
+    assert set(NARROW_SHAPES) == want
+    src = _SRC.read_text()
+    macro = src[src.index("#define NB_SHAPES(X)"):].split("\n\n")[0]
+    built = {(int(a), int(b)) for a, b in re.findall(r"X\((\d+), (\d+)\)", macro)}
+    assert built == want
+
+
+@pytest.mark.parametrize("C,nH,body", [(48, 3, 1), (96, 6, 1), (96, 3, 1), (48, 1, 1), (96, 24, 1),
+                                       (32, 2, 1), (28, 7, 1), (24, 3, 2), (12, 3, 2), (4, 1, 2)])
+@pytest.mark.parametrize("dtype,round_qkv", [(torch.bfloat16, True), (torch.bfloat16, False), (torch.float32, True)],
+                         ids=["bf16-cst", "bf16-rowmajor", "fp32"])
+def test_each_launch_takes_its_body(C, nH, body, dtype, round_qkv):
+    """The route is chosen from C, the dtype and round_qkv alone: bf16 with
+    qkv rounded takes the narrow body at C <= 24 and the Hopper body at C =
+    28 to 96 (the fixed-width instances at 48 and 96 only); fp32 and the
+    row-major entry's bf16 take the fp32-FMA body at every width."""
+    p = kernel_plan(C, nH, dtype, round_qkv)
+    if dtype == torch.float32 or not round_qkv:
+        assert p.body == 0
+        return
+    assert p.body == body
+    assert p.variant == {48: 3, 96: 4}.get(C, 0) if body == 1 else p.variant == 0
+    assert set(HOPPER_VARIANTS.values()) == {3, 4} and all(c > NARROW_MAX_C for c, _, _ in HOPPER_VARIANTS)
 
 
 @pytest.mark.parametrize("span,rows,cols", [
