@@ -73,7 +73,7 @@
    eagerly (the same bits, else PIPE_TOL), the output
    against the same weights with fused_blocks=False (PIPE_TOL; SwinUNetSR's
    against the kernel's plain versions and beside the unfused route against
-   the fp32 model), ms a call, images/s, peak memory, a profile of each;
+   the fp32 model), ms a call, images/s, peak memory;
    one fp32 SwinUNet call at B=64 (2 cst); cst at the B=64 shapes is held
    against plain in [2];
 11. the split route: SwinWNetInference(split=True) on the bf16 serving
@@ -105,8 +105,7 @@
 15. the renderer's calibration: detect_table, extract_crystal_spec and
    refine_crystal_spec(iters=2) on a render_calibrated pattern with the
    rebin on the card and on the CPU give the same peaks (d within one bin);
-16. times: per call (with the serving call's device-busy share), per
-   training and RL step, and per kernel and on-path shape the kernel, its
+16. times: per call, per training and RL step, and per kernel and on-path shape the kernel, its
    plain version and its bound; for cst and wide the plan, the body it
    takes, its registers and CTAs an SM; for the row-major kernel also the
    same launch with [in, out]-stored weights and the plan of its CTAs; the
@@ -156,10 +155,7 @@
 20. entry() (swinwnet_tpu_torch/entry.py) on the card: fn(model, x) of
    shape [1, 2, 500, 960], finite, and the same weights through the fused
    kernels' route (10 cst) against it at PIPE_TOL fp32;
-21. the benchmark (swinwnet_tpu_torch/recipes/bench.py, `main(["--mesh"])`)
-   at 1.5 s of steady state a record: every record of bench.py, its keys,
-   its fused launches a call or step against the gate's count, its loop's
-   output finite.
+21. (no phase: the port's speed is measured by benchmark/run.py, not here)
 22. the compiled programs (core/graphs.py: a CUDA graph captured once per
    input shape and replayed) at the published width and full geometry:
    make_inference_fn in bf16 (B=4 and B=1), in fp32 and on the nmajor
@@ -168,25 +164,30 @@
    PIPE_TOL), launches a replay against the gate, an earlier call's
    tensors intact after the next, a new batch size and a replaced Parameter
    capturing again, load_state_dict not; the split programs against the
-   single one bit for bit; the RL step (make_rl_train_step) in bf16 at
+   single one bit for bit; make_inference_fn in bf16 and
+   make_rl_inference_fn at B=64 and an fp32 model with every level unfused
+   at B=8, each captured and replayed against eager with its launches
+   against the gate (none unfused); make_inference_fn on the data mesh over
+   every card (NCCL, a rank a card): the bf16 model replicated from rank 0
+   (parallel.replicate) and each rank's 64 images of the global batch
+   (parallel.shard_batch), the weights against rank 0's, the replay against
+   eager and its launches against the gate; the RL step (make_rl_train_step) in bf16 at
    [4, 2, 250, 480] on rl_model and Bragg lines: four captured steps
    against four eager rl_steps from the same weights and noise (every
    metric, model and policy leaf the same bits, else [8]'s limits; frozen
-   leaves; 26 cst a step), a capture on a batch with few distance-gate
-   candidates replayed on one with more against eager on both, and the
-   control with the gate's bound frozen at the first batch's count, which
-   must fail; the gate alone as a program and eagerly (CUDA events, device
-   busy); then four captured training steps of each stage
+   leaves; 26 cst a step, 8 of them the narrow body), the gate alone
+   captured against its warm-up, a capture on a batch with few
+   distance-gate candidates replayed on one with more against eager on
+   both, and the control with the gate's bound frozen at the first batch's
+   count, which must fail; then four captured training steps of each stage
    (fp32 B=8 with fused_deep, bf16 B=4 with remat) against four eager ones
    from the same weights and batches, the learning rate doubling between
    steps 2 and 3: losses and every leaf (the same bits, else [4]'s
    limits), frozen leaves, launches a step; and a control at epoch 0's rate
-   throughout that must fail after step 3. Times: ms a call or step of the
-   program and of eager (median of 10, host clock) with the device-busy
-   share of one profiled call each.
+   throughout that must fail after step 3.
 
 The serving and training phases ([3], [4], [5], [7], [10]-[14],
-[17], [18], [19], [21]) run through the programs because their callers
+[17], [18], [19]) run through the programs because their callers
 do; a route that swaps functions in at run time (the plain versions, the
 pad-mask control, [8]'s timers) runs under
 `core.graphs.run_eagerly()`, and so does a gloo group on the card. Every
@@ -880,7 +881,7 @@ def build_model(dtype, seed=SEED, **kw):
     return model
 
 
-def serve(dtype, batch, n_calls, rng, profile=False, **model_kw):
+def serve(dtype, batch, n_calls, rng, **model_kw):
     """Drive the pipeline; returns (first request's stages, per-call ms,
     launches per kernel per call, (plain stages, the plain route's stages in
     fp32), plain ms)."""
@@ -922,39 +923,8 @@ def serve(dtype, batch, n_calls, rng, profile=False, **model_kw):
             ref = {k: getattr(infer, k).clone() for k in STAGE_NAMES}
     if launches() != total or en.patch_expand_norm.launches != expansions:
         raise SystemExit("the plain pipeline launched a kernel")
-    if profile:
-        profile_call(lambda: infer(requests[0]), "one serving call")
     del model, infer
     return first, call_ms, per_call, total, (plain, ref), plain_ms
-
-
-PROFILES = {}  # what -> (wall ms, device-busy ms) of profile_call
-
-
-def profile_call(fn, what, quiet=False):
-    """Device time by kernel over one call of `fn` (torch.profiler), and the
-    share of its wall time the device was busy (kept in PROFILES); `quiet`
-    prints the summary line alone."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    # kernel events only: the aten ops above them report the same device time
-    rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
-    rows.sort(key=lambda r: -r[1])
-    busy = sum(r[1] for r in rows)
-    PROFILES[what] = (wall_ms, busy)
-    fused = [r for r in rows if "swin_block_kernel" in r[0] or "swin_block_hopper_kernel" in r[0]]
-    print(f"  profile of {what}: wall {wall_ms:.1f} ms, device busy {busy:.1f} ms "
-          f"({100 * busy / wall_ms:.1f}%), {len(rows)} kernel kinds; the Swin-block kernels "
-          f"{sum(r[1] for r in fused):.1f} ms in {sum(r[2] for r in fused)} launches, "
-          f"{100 * sum(r[1] for r in fused) / max(busy, 1e-9):.1f}% of the device time")
-    for key, ms, count in rows[:0 if quiet else 12]:
-        print(f"    {ms:8.3f} ms {100 * ms / max(busy, 1e-9):5.1f}%  x{count:<4d} {key[:90]}")
 
 
 def bf16_step(t):
@@ -1243,12 +1213,7 @@ def train_main_path(rng):
     if [len(loader.steps(i)) for i in range(3)] != [4, 4, 4]:
         raise SystemExit("training: expected 4 steps a stage")
     print(f"  peak device memory in training {peak_gb:.2f} GiB; launches in the run {total}")
-
-    batch = loader.batches[1]
-    trainer = FullModelTrainer(model, [batch], num_epochs=1, warmup_epochs=1, verbose=False)
-    trainer.train_step(*batch, even=False)  # captures the step's graph: the profile is of a replay
-    profile_call(lambda: trainer.train_step(*batch, even=False), f"one stage-3 odd step, B={TRAIN_B}, fp32")
-    del model, trainer
+    del model
     return records, total
 
 
@@ -1502,7 +1467,6 @@ def rl_serve(rng, n_calls=3):
         raise SystemExit("RL serving: the upscaled_norm mean check does not catch a dropped pad mask")
     print(f"  RL serving launches per call [cst, row-major, wide] {per_call} (gate: {want}); alpha "
           f"{[round(v, 4) for v in first['alpha'].flatten().tolist()]}")
-    profile_call(lambda: infer(requests[0]), "one RL serving call")
     return call_ms, plain_ms, total
 
 
@@ -1628,9 +1592,6 @@ def rl_main_path(rng, lines, n_steps=4):
           f"{[round(t, 2) for t in reward_ms]}, the distance gate {[round(t, 2) for t in dist]} over "
           f"{peaks_mod.max_candidates(len(d_centers_hr))} ranks ({ranks} of them candidates); peak device memory "
           f"{peak_gb:.2f} GiB")
-    images = loader.batches[1][0]
-    with graphs.run_eagerly():
-        profile_call(lambda: train_step(images), f"one RL step, bf16, B={RL_B}, eager")
     return [ms for ms, _ in steps], reward_ms, dist, ranks, total, peak_gb
 
 
@@ -1836,7 +1797,6 @@ def serve_baseline(kind, rng, n_calls=3):
     print(f"  {kind}: per call {', '.join(f'{t:.1f}' for t in call_ms)} ms (mean {np.mean(call_ms):.1f} ms, "
           f"{batch / np.mean(call_ms) * 1e3:.1f} images/s); plain route {plain_ms:.1f} ms; peak device memory "
           f"{peak_gb:.2f} GiB")
-    profile_call(lambda: fn(requests[0]), f"one {kind} call, B={batch}")
     del model, fn
     return call_ms, plain_ms, total, peak_gb, batch
 
@@ -2198,7 +2158,6 @@ def viewer_main_path(rng):
         session.curves(out["images"]), session.curves(out["images_masked_hr"], high_res=True)
         torch.cuda.synchronize()
         session_ms.append((time.perf_counter() - t0) * 1e3)
-    profile_call(lambda: session.run(images), f"one viewer call, B={VIEW_B}, fp32")
     del model, plain_model, vm, session
     return call_ms, session_ms[1:], (load_ms, write_ms), cli_s, total
 
@@ -2860,7 +2819,7 @@ def compare_bf16_first_steps(probe):
     versions' (and the fp32 step, which sets each leaf's tolerance) on the
     batch the recipe's first step of that kind took; frozen parameters the
     same bits; the ms of each kernel-route step (warm: the recipe ran these
-    shapes); a profile of one bf16 stage-3 odd step."""
+    shapes)."""
     step_ms = {}
     for kind in ("stage1", "stage2", "stage3_even", "stage3_odd"):
         batch = probe.first_batch[kind]
@@ -2883,14 +2842,6 @@ def compare_bf16_first_steps(probe):
         if not ok:
             raise SystemExit(f"{kind}: the bf16 step through the kernels disagrees with the plain route: {over[:5]}")
         check_frozen(kind if kind in ("stage1", "stage2") else "stage3", before, after, g_k)
-    batch = probe.first_batch["stage3_odd"]
-    model = build_model(torch.float32, remat=True, attn_chunk=8192).train()
-    trainer = FullModelTrainer(model, [batch], num_epochs=1, warmup_epochs=1, verbose=False,
-                               compute_dtype="bfloat16", upscaler_loss="SmoothL1SSIMLoss")
-    trainer.train_step(*batch, even=False)
-    profile_call(lambda: trainer.train_step(*batch, even=False),
-                 f"one bf16 stage-3 odd step of the recipe, B={RECIPE_B}, remat")
-
 
 
 def recipes_phase():
@@ -2980,7 +2931,7 @@ def recipes_phase():
 
 
 # ---------------------------------------------------------------------------
-# [20] entry(), [21] the benchmark
+# [20] entry()
 # ---------------------------------------------------------------------------
 
 
@@ -3019,60 +2970,6 @@ def entry_check():
     pipe_compare("entry() images_masked_hr, the 10 cst launches (kernel) against every level unfused (plain):",
                  fused, out, torch.float32, relative=True)
     return ms, n
-
-
-BENCH_TARGET_S = 1.5  # seconds of steady state a record in [21]
-BENCH_KEYS = {"name", "kind", "batch", "dtype", "images_per_sec", "iters", "steady_state_s", "fused_launches",
-              "peak_mem_gib", "device", "power_limit_w"}
-
-
-def bench_expected(rec):
-    """The gate's fused launches a call or a step of a bench record."""
-    if rec["name"] == "seg_only_b64_bf16":
-        return tower_launches((H, W), rec["batch"] // rec.get("devices", 1), torch.bfloat16, False, "cmajor", False)
-    if rec["kind"].startswith("serving") and rec.get("fused_blocks"):
-        return expected_launches("serve", rec["batch"] // rec.get("devices", 1), resolve_dtype(rec["dtype"]), False,
-                                 "cmajor")
-    return [0, 0, 0]
-
-
-def bench_phase():
-    """recipes.bench.main(["--mesh"]) at BENCH_TARGET_S a record, every
-    record: its keys, its fused launches against the gate (the loops raise
-    on a non-finite output or loss). Returns the summary."""
-    from swinwnet_tpu_torch.recipes import bench
-
-    saved = {k: os.environ.get(k) for k in ("SWINWNET_BENCH_TARGET_S", "SWINWNET_BENCH_CONFIGS")}
-    os.environ["SWINWNET_BENCH_TARGET_S"] = str(BENCH_TARGET_S)
-    os.environ.pop("SWINWNET_BENCH_CONFIGS", None)
-    t0 = time.perf_counter()
-    try:
-        summary = bench.main(["--mesh"])
-    finally:
-        for k, v in saved.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
-    bad = []
-    for rec in summary["records"]:
-        keys = set(BENCH_KEYS)
-        if rec["kind"] == "serving_full_pipeline":
-            keys |= {"gflops_per_image", "mfu_pct"} | ({"latency_ms_per_image"} if rec["batch"] == 1 else set())
-        if rec["name"].endswith("_mesh"):
-            keys |= {"devices", "images_per_sec_per_card"}
-        want = bench_expected(rec)
-        ok = keys <= rec.keys() and rec["fused_launches"] == want and np.isfinite(rec["images_per_sec"])
-        print(f"  {rec['name']:30s} {rec['images_per_sec']:10.2f} images/s, {rec['iters']} iterations, peak "
-              f"{rec['peak_mem_gib']:.2f} GiB, fused launches {rec['fused_launches']} (gate: {want}) "
-              f"{'ok' if ok else 'FAIL'}")
-        if not ok:
-            bad.append(rec["name"])
-    names = [r["name"] for r in summary["records"]]
-    if bad or sorted(names) != sorted(bench.RECORD_NAMES):
-        raise SystemExit(f"bench: records {bad} fail their checks, or the records are {names}")
-    print(f"  phase [21] {time.perf_counter() - t0:.1f} s")
-    return summary
 
 
 def plan_text(C, nH, dtype, round_qkv=True):
@@ -3156,12 +3053,12 @@ def time_new_levels(kernel, dtype, batch, levels, gen):
 # [22] The compiled programs
 # ---------------------------------------------------------------------------
 
-PROGRAM_CALLS = 10  # calls or steps of each route timed, their median reported
 # the training comparisons' schedule: two steps an epoch, two warm-up
 # epochs, so the learning rate doubles between steps 2 and 3
 PROGRAM_SCHEDULE = dict(base_lr=1e-3, warmup_epochs=2, num_epochs=4, steps_per_epoch=2)
 PROGRAM_STEPS = 4
-PROGRAM_TIMES = []  # (what, program ms, eager ms, program busy %, eager busy %)
+FLAGSHIP_B = 64  # the flagship serving batch: make_inference_fn, RL serving and the mesh's batch a card
+UNFUSED_B = 8  # the unfused fp32 serving program's batch
 PROGRAM_BITS = {}  # check -> whether every comparison in it had the same bits
 
 
@@ -3190,31 +3087,6 @@ def eagerly(fn):
         with graphs.run_eagerly():
             return fn(*args)
     return call
-
-
-def median_ms(fn, n=PROGRAM_CALLS):
-    ts = []
-    for _ in range(n):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        ts.append((time.perf_counter() - t0) * 1e3)
-    return float(np.median(ts))
-
-
-def time_routes(what, program, eager):
-    """The median host ms of `program()` and `eager()` over PROGRAM_CALLS
-    calls each, and each one's device-busy share over one profiled call."""
-    program()  # a signature not captured yet captures here, outside the timed calls
-    eager()
-    p_ms, e_ms = median_ms(program), median_ms(eager)
-    busy = []
-    for fn, route in ((program, "program"), (eager, "eager")):
-        profile_call(fn, f"{what}, {route}", quiet=True)
-        wall, dev = PROFILES[f"{what}, {route}"]
-        busy.append(100 * dev / wall)
-    PROGRAM_TIMES.append((what, p_ms, e_ms, *busy))
 
 
 def serving_program(tag, dtype, fn, eager, n_signatures, want, rng, other_state, model, names=STAGE_NAMES):
@@ -3277,9 +3149,9 @@ def serving_programs(rng):
         want = expected_launches("serve", B, dtype, False, kw.get("fused_layout", "cmajor"))
         other = build_model(dtype, seed=SEED + 11, **kw).state_dict()
         total = add(total, serving_program(tag, dtype, fn, eager, lambda: fn.num_graphs, want, rng, other, model))
-        x = torch.from_numpy(rng.uniform(0, 1e3, (B, 2, H, W)).astype(np.float32)).cuda()
-        for b in ((B, 1) if dtype == torch.bfloat16 and not kw else (B,)):
-            time_routes(f"{tag} B={b}", lambda: fn(x[:b]), lambda: eager(x[:b]))
+        if tag == "serving bf16":
+            total = add(total, serving_at(tag, dtype, fn, eager, FLAGSHIP_B,
+                                          expected_launches("serve", FLAGSHIP_B, dtype, False, "cmajor"), rng))
         del model, fn, other
 
     # the split route: its three programs against eager, and against the single route bit for bit
@@ -3303,7 +3175,6 @@ def serving_programs(rng):
     if len(same) < len(STAGE_NAMES) or not seg_only:
         raise SystemExit("[22] the split programs do not equal the single program bit for bit")
     total = add(total, [b - a for a, b in zip(n0, launches())])
-    time_routes(f"split bf16 B={B}", lambda: split(x), lambda: inference_stages(model, x))
     del model, split, single, other, got, want_stages
 
     # RL serving
@@ -3313,10 +3184,100 @@ def serving_programs(rng):
     other = build_model(torch.bfloat16, seed=SEED + 11).state_dict()
     total = add(total, serving_program("RL serving bf16", torch.bfloat16, fn, eager, lambda: fn.num_graphs, want,
                                        rng, other, model, names=STAGE_NAMES + ("alpha",)))
-    x = torch.from_numpy(rng.uniform(0, 1e3, (B, 2, H, W)).astype(np.float32)).cuda()
-    time_routes(f"RL serving bf16 B={B}", lambda: fn(x), lambda: eager(x))
+    total = add(total, serving_at("RL serving bf16", torch.bfloat16, fn, eager, FLAGSHIP_B,
+                                  expected_launches("serve", FLAGSHIP_B, torch.bfloat16, False, "cmajor"), rng,
+                                  names=STAGE_NAMES + ("alpha",)))
     del model, policy, fn, other
-    return total
+
+    # fp32 with every level unfused (the expansions still their kernel): no Swin-block launch
+    model = build_model(torch.float32).eval()
+    for m in model.modules():
+        if isinstance(m, BasicLayer):
+            m.fused_blocks = False
+    fn = make_inference_fn(model)
+    total = add(total, serving_at("serving fp32 unfused", torch.float32, fn, lambda x: inference_stages(model, x),
+                                  UNFUSED_B, [0, 0, 0], rng))
+    del model, fn
+    return add(total, mesh_serving())
+
+
+def serving_at(tag, dtype, fn, eager, batch, want, rng, names=STAGE_NAMES):
+    """A serving program `fn` at one more batch size: its first call (the
+    capture) and a replay against `eager` on the same input (the same bits,
+    else PIPE_TOL), `want` launches a replay. Returns the launches of the
+    run."""
+    x = torch.from_numpy(rng.uniform(0, 1e3, (batch, 2, H, W)).astype(np.float32)).cuda()
+    take = lambda d: {k: d[k].detach().clone() for k in names}
+    start = launches()
+    e = take(eager(x))
+    bits = [hold_stages(f"{tag} B={batch} first call", fn(x), e, dtype)]
+    before = launches()
+    out = fn(x)
+    torch.cuda.synchronize()
+    n = [b - a for a, b in zip(before, launches())]
+    bits.append(hold_stages(f"{tag} B={batch} replay", out, e, dtype))
+    PROGRAM_BITS[f"{tag} B={batch}"] = all(bits)
+    print(f"  {tag} B={batch}: launches a replay {n} (gate: {want}); the capture and the replay against eager: "
+          f"{'the same bits' if all(bits) else 'within PIPE_TOL, not all the same bits'} {'ok' if n == want else 'FAIL'}")
+    if n != want:
+        raise SystemExit(f"[22] {tag} B={batch}: a replay launched {n}, the gate {want}")
+    return [b - a for a, b in zip(start, launches())]
+
+
+def mesh_rank(rank, n, port, out_path):
+    """One rank of [22]'s serving on the data mesh: the bf16 model drawn
+    from its own seed, then replicated from rank 0, must hold rank 0's
+    weights; its FLAGSHIP_B images of a global batch through
+    make_inference_fn, captured and replayed against the same pipeline run
+    eagerly. Rank 0 writes its launches a replay, of the rank's run, and
+    whether its replay had the eager bits."""
+    from swinwnet_tpu_torch.parallel import initialize_multihost, make_mesh, replicate, shard_batch
+    from swinwnet_tpu_torch.pipelines.split import inference_stages
+
+    initialize_multihost(f"localhost:{port}", n, rank, device="cuda")
+    try:
+        mesh = make_mesh(n)
+        start = launches()
+        model = replicate(build_model(torch.bfloat16, seed=SEED + rank), mesh).eval()
+        ref = build_model(torch.bfloat16).state_dict()
+        if not all(torch.equal(v, ref[k]) for k, v in model.state_dict().items()):
+            raise SystemExit(f"[22] mesh rank {rank}: the replicated weights are not rank 0's")
+        global_batch = np.random.default_rng(SEED).uniform(0, 1e3, (FLAGSHIP_B * n, 2, H, W)).astype(np.float32)
+        x = shard_batch(global_batch, mesh)
+        fn = make_inference_fn(model)
+        want = {k: v.detach().clone() for k, v in inference_stages(model, x).items() if k in STAGE_NAMES}
+        fn(x)
+        before = launches()
+        out = fn(x)
+        torch.cuda.synchronize()
+        per_replay = [b - a for a, b in zip(before, launches())]
+        bits = hold_stages(f"mesh rank {rank} replay", out, want, torch.bfloat16)
+        if rank == 0:
+            torch.save({"replay": per_replay, "run": [b - a for a, b in zip(start, launches())], "bits": bits},
+                       out_path)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def mesh_serving():
+    """make_inference_fn on the data mesh over every card (mesh_rank a
+    card, NCCL): rank 0's launches a replay against the gate. Returns rank
+    0's launches."""
+    n = torch.cuda.device_count()
+    torch.cuda.empty_cache()  # the ranks' processes share the card with this one
+    with tempfile.TemporaryDirectory() as tmp:
+        out_path = os.path.join(tmp, "rank0.pt")
+        torch.multiprocessing.spawn(mesh_rank, args=(n, dryrun_mod.free_port(), out_path), nprocs=n, join=True)
+        out = torch.load(out_path)
+    want = expected_launches("serve", FLAGSHIP_B, torch.bfloat16, False, "cmajor")
+    PROGRAM_BITS[f"serving bf16 on the mesh of {n}"] = out["bits"]
+    ok = out["replay"] == want
+    print(f"  serving bf16 on the data mesh of {n} card(s), B={FLAGSHIP_B} a card: replicated weights rank 0's; "
+          f"rank 0's launches a replay {out['replay']} (gate: {want}); its replay against eager: "
+          f"{'the same bits' if out['bits'] else 'within PIPE_TOL, not the same bits'} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"[22] serving on the mesh: a replay launched {out['replay']}, the gate {want}")
+    return out["run"]
 
 
 def step_of(kind, model, tx, compute_dtype, sr_loss):
@@ -3332,8 +3293,8 @@ def step_of(kind, model, tx, compute_dtype, sr_loss):
 def program_steps(kind, batches, model_kw, compute_dtype, sr_loss, eager, constant_lr=False):
     """PROGRAM_STEPS steps of `kind` from the seed's weights on `batches`
     through the factories (eagerly when `eager`), at PROGRAM_SCHEDULE or
-    held at its epoch-0 rate. Returns (model, state, step, the parameters
-    before, losses, launches per step)."""
+    held at its epoch-0 rate. Returns (model, the parameters before, losses,
+    launches per step)."""
     model = build_model(torch.float32, **model_kw).train()
     schedule = warmup_cosine_schedule(**PROGRAM_SCHEDULE)
     lr = (lambda count: schedule(count * 0)) if constant_lr else schedule
@@ -3347,7 +3308,7 @@ def program_steps(kind, batches, model_kw, compute_dtype, sr_loss, eager, consta
             state, out = step(state, images, masks)
             losses.append(float(loss_of(out)))
             counts.append([b - a for a, b in zip(n0, launches())])
-    return model, state, (lambda *b: step(state, *b)), before, losses, counts
+    return model, before, losses, counts
 
 
 def agree(got, want, before):
@@ -3376,11 +3337,9 @@ def training_program(kind, dtype, batch, model_kw, rng):
     batches = [(torch.from_numpy(i).cuda(), torch.from_numpy(m).cuda())
                for i, m in training_batches(PROGRAM_STEPS, batch, rng)]
     start = launches()
-    eager_model, _, eager_step, before, e_losses, _ = program_steps(kind, batches, model_kw, compute_dtype, sr_loss,
-                                                                    eager=True)
+    eager_model, before, e_losses, _ = program_steps(kind, batches, model_kw, compute_dtype, sr_loss, eager=True)
     e_after = snapshot(eager_model)
-    model, state, step, before_p, p_losses, counts = program_steps(kind, batches, model_kw, compute_dtype, sr_loss,
-                                                                   eager=False)
+    model, before_p, p_losses, counts = program_steps(kind, batches, model_kw, compute_dtype, sr_loss, eager=False)
     after = snapshot(model)
     close = lambda a, b: a == b or abs(a - b) <= TRAIN_LOSS_RTOL * abs(b)
     differ, worst = agree(after, e_after, before)
@@ -3400,12 +3359,10 @@ def training_program(kind, dtype, batch, model_kw, rng):
           f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise SystemExit(f"[22] {kind} {dtype}: the captured steps disagree with the eager steps")
-    time_routes(f"{kind} step {str(dtype)[6:]} B={batch}", lambda: step(*batches[0]),
-                eagerly(lambda: eager_step(*batches[0])))
-    del model, state, step, eager_model, eager_step
+    del model, eager_model
 
-    c_model, _, _, _, c_losses, _ = program_steps(kind, batches, model_kw, compute_dtype, sr_loss, eager=False,
-                                                  constant_lr=True)
+    c_model, _, c_losses, _ = program_steps(kind, batches, model_kw, compute_dtype, sr_loss, eager=False,
+                                            constant_lr=True)
     c_differ, c_worst = agree(snapshot(c_model), e_after, before)
     held = all(map(close, c_losses[:3], e_losses[:3]))
     caught = not close(c_losses[3], e_losses[3]) or c_worst > TRAIN_GRAD_TOL
@@ -3479,8 +3436,7 @@ def rl_steps(batches, eager, bound=None, counts=None, spectra=None):
     distance gate's loop count while the program captures; `counts` and
     `spectra` note the gate's calls (eager only). Returns (metrics a step,
     leaves before, leaves after, launches a step, peak GiB above what was
-    allocated before the first step (the program's graph pool included),
-    the step)."""
+    allocated before the first step (the program's graph pool included))."""
     model, policy = rl_model(), rl_policy()
     model_tx = masked_adamw(model, "rl", 1e-5, weight_decay=0.0)
     policy_tx = AdamW(policy.parameters(), 1e-4, weight_decay=0.0)
@@ -3506,7 +3462,7 @@ def rl_steps(batches, eager, bound=None, counts=None, spectra=None):
             metrics.append({k: float(v) for k, v in m.items()})
             per_step.append([b - a for a, b in zip(n0, launches())])
     peak_gb = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
-    return metrics, before, rl_leaves(model, policy), per_step, peak_gb, (lambda images: step(state, images))
+    return metrics, before, rl_leaves(model, policy), per_step, peak_gb
 
 
 def rl_agree(got, want, before):
@@ -3522,48 +3478,45 @@ def rl_agree(got, want, before):
 def rl_program(rng, lines):
     """[22]'s RL step: four captured bf16 steps at [RL_B, 2, 250, 480]
     against four eager rl_steps from the same weights and noise (the same
-    bits, else [8]'s limits), frozen leaves, launches a step; a capture on a
-    batch with few distance-gate candidates replayed on one with more
-    against eager on the same two batches, and the control with the gate's
-    bound frozen at the first batch's count, which must fail; times of
-    program and eager, peak memory, and the gate alone as a program and
-    eagerly. Returns the launches of the checked runs."""
+    bits, else [8]'s limits), frozen leaves, launches a step (the narrow
+    body's too), peak memory; the gate alone captured against its warm-up;
+    a capture on a batch with few distance-gate candidates replayed on one
+    with more against eager on the same two batches, and the control with
+    the gate's bound frozen at the first batch's count, which must fail.
+    Returns the launches of the checked runs."""
     start = launches()
     want = expected_launches("rl", RL_B, torch.bfloat16, False, "cmajor")
+    # the SR head's levels (C <= 24) take the narrow body in both half-size upscales
+    want_narrow = sum(r[4] for r in RL_LEVELS if r[1] <= sb.NARROW_MAX_C)
     batches = [torch.from_numpy(bragg_patterns(rng, RL_B, lines)).cuda() for _ in range(PROGRAM_STEPS)]
     counts, spectra = [], []
-    e_metrics, before, e_after, _, e_peak, _ = rl_steps(batches, eager=True, counts=counts, spectra=spectra)
-    p_metrics, before_p, p_after, per_step, p_peak, step = rl_steps(batches, eager=False)
+    e_metrics, before, e_after, _, e_peak = rl_steps(batches, eager=True, counts=counts, spectra=spectra)
+    n0 = sb.NARROW_LAUNCHES.launches
+    p_metrics, before_p, p_after, per_step, p_peak = rl_steps(batches, eager=False)
+    narrow = (sb.NARROW_LAUNCHES.launches - n0) / PROGRAM_STEPS
     bits, close = rl_agree((p_metrics, p_after), (e_metrics, e_after), before)
     model_leaves = lambda d: {k: v for k, v in d.items() if not k.startswith("policy.")}
     frozen = [k for k in model_leaves(before) if not STAGE_TRAINS["rl"](k.split(".")[0])]
     frozen_same = all(torch.equal(p_after[k], before[k]) for k in frozen)
     policy_moved = all(not torch.equal(p_after[k], before[k]) for k in before if k.startswith("policy."))
     rewards = [m["reward"] for m in p_metrics]
-    ok = close and frozen_same and policy_moved and all(n == want for n in per_step) and 0.0 not in rewards
+    ok = (close and frozen_same and policy_moved and all(n == want for n in per_step) and narrow == want_narrow
+          and 0.0 not in rewards)
     PROGRAM_BITS["RL step bf16"] = bits
     e_rewards = [f"{m['reward']:.7g}" for m in e_metrics]
     print(f"  RL step bf16 B={RL_B}: {PROGRAM_STEPS} captured steps against as many eager rl_steps: rewards "
           f"{[f'{r:.7g}' for r in rewards]} eager {e_rewards}; every metric and "
           f"{len(before)} model and policy leaves: {'the same bits' if bits else 'within [8] limits, not the same bits'}; "
-          f"{len(frozen)} frozen leaves the same bits: {frozen_same}; launches a step {per_step} (gate: {want}); "
-          f"the gate's candidates a step {counts} of {peaks_mod.max_candidates(len(d_centers_hr))} ranks; peak "
+          f"{len(frozen)} frozen leaves the same bits: {frozen_same}; launches a step {per_step} (gate: {want}), "
+          f"of them the narrow body's {narrow:g} ({want_narrow} expected); the gate's candidates a step {counts} of {peaks_mod.max_candidates(len(d_centers_hr))} ranks; peak "
           f"device memory above the start {p_peak:.2f} GiB (eager {e_peak:.2f}) {'ok' if ok else 'FAIL'}")
     if not ok:
         raise SystemExit("[22] RL: the captured steps disagree with the eager rl_steps")
-    x = batches[0]
-    time_routes(f"RL step bf16 B={RL_B}", lambda: step(x), eagerly(lambda: step(x)))
-    RL_PROGRAM["peak_gib"] = (p_peak, e_peak)
     mask, I = spectra
     gate = graphs.Program(lambda m, i: peaks_mod._enforce_distance(m, i, RL_DISTANCE))
-    same = torch.equal(gate(mask, I), gate(mask, I))
-    RL_PROGRAM["gate_ms"] = (cuda_ms(lambda: gate(mask, I), 10),
-                             cuda_ms(lambda: peaks_mod._enforce_distance(mask, I, RL_DISTANCE), 3))
-    profile_call(lambda: gate(mask, I), "the distance gate, program", quiet=True)
-    profile_call(lambda: peaks_mod._enforce_distance(mask, I, RL_DISTANCE), "the distance gate, eager", quiet=True)
-    if not same:
+    if not torch.equal(gate(mask, I), gate(mask, I)):
         raise SystemExit("[22] RL: the captured distance gate differs from its warm-up")
-    del step, gate
+    del gate
 
     # capture on a batch with few candidates, replay on one with more
     noises = torch.randn((2, RL_B, 1), generator=torch.Generator(device="cuda").manual_seed(SEED), device="cuda")
@@ -3578,10 +3531,10 @@ def rl_program(rng, lines):
     else:
         raise SystemExit(f"[22] RL: no scale of a batch gives fewer gate candidates than {c_b}")
     counts = []
-    e_metrics, before, e_after, _, _, _ = rl_steps([a, b], eager=True, counts=counts)
-    p_metrics, _, p_after, _, _, _ = rl_steps([a, b], eager=False)
+    e_metrics, before, e_after, _, _ = rl_steps([a, b], eager=True, counts=counts)
+    p_metrics, _, p_after, _, _ = rl_steps([a, b], eager=False)
     bits_ab, close_ab = rl_agree((p_metrics, p_after), (e_metrics, e_after), before)
-    c_metrics, _, c_after, _, _, _ = rl_steps([a, b], eager=False, bound=counts[0])
+    c_metrics, _, c_after, _, _ = rl_steps([a, b], eager=False, bound=counts[0])
     bits_c, close_c = rl_agree((c_metrics[1:], c_after), (e_metrics[1:], e_after), before)
     ok = counts[1] > counts[0] and close_ab and not close_c
     PROGRAM_BITS["RL capture on A, replay on B"] = bits_ab
@@ -3596,9 +3549,6 @@ def rl_program(rng, lines):
                          "frozen-bound control was not caught")
     torch.cuda.empty_cache()
     return [b_ - a_ for a_, b_ in zip(start, launches())]
-
-
-RL_PROGRAM = {}  # "peak_gib": (program, eager); "gate_ms": (program, eager)
 
 
 def programs_phase(rng, lines):
@@ -3662,7 +3612,7 @@ def main() -> int:
     rng = np.random.default_rng(SEED)
     main_path = [0, 0, 0]  # launches per kernel over the main paths this script drives
     print(f"[3] serving, bf16, 3 requests of [{B}, 2, {H}, {W}]")
-    stages, call_ms, per_call, total, plain, plain_ms = serve(bf16, B, 3, rng, profile=True)
+    stages, call_ms, per_call, total, plain, plain_ms = serve(bf16, B, 3, rng)
     print(f"  kernel launches per call [cst, row-major, wide] {per_call} (total {total})")
     want = expected_launches("serve", B, bf16, False, "cmajor")
     if want != [LAUNCHES_PER_CALL[bf16], 0, 0]:
@@ -3744,10 +3694,8 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     print(f"[16] times on {smi}")
     mean_ms = float(np.mean(call_ms))
-    wall, busy = PROFILES["one serving call"]
     print(f"  serving bf16 B={B}: per call {', '.join(f'{t:.1f}' for t in call_ms)} ms (mean {mean_ms:.1f} ms, "
-          f"{B / mean_ms * 1e3:.2f} images/s); through the plain versions {plain_ms:.1f} ms; under the profiler "
-          f"the device was busy {busy:.1f} of {wall:.1f} ms ({100 * busy / wall:.1f}%)")
+          f"{B / mean_ms * 1e3:.2f} images/s); through the plain versions {plain_ms:.1f} ms")
     print(f"  serving fp32 B=1: per call {', '.join(f'{t:.1f}' for t in ms32)} ms; through the plain versions {pms32:.1f} ms")
     print(f"  serving bf16 B={B} with fused_layout='nmajor': {ms_w[0]:.1f} ms; through the plain versions {pms_w:.1f} ms")
     for kind, ms in step_ms.items():
@@ -3824,29 +3772,11 @@ def main() -> int:
     main_path = add(main_path, recipes_phase())
     print("[20] entry(): the published model's serving function on its example image")
     entry_check()
-    print(f"[21] the benchmark: swinwnet_tpu_torch.recipes.bench, every record at {BENCH_TARGET_S} s of steady state")
-    before = launches()
-    bench_phase()
-    main_path = add(main_path, [b - a for a, b in zip(before, launches())])
-    print(f"[22] the compiled programs: serving ({B} and 1 images), the RL step (bf16 B={RL_B}) and training steps "
+    print(f"[22] the compiled programs: serving ({B}, 1 and {FLAGSHIP_B} images, unfused at {UNFUSED_B}, and "
+          f"{FLAGSHIP_B} a card on the data mesh), the RL step (bf16 B={RL_B}) and training steps "
           f"(fp32 B={TRAIN_B} fused_deep, bf16 B={RECIPE_B} remat) replaying CUDA graphs, against the same pipelines "
           f"and steps run eagerly")
-    t22 = time.perf_counter()
     main_path = add(main_path, programs_phase(rng, lines))
-    print(f"  phase [22] {time.perf_counter() - t22:.0f} s")
-    print(f"[22] times on {smi}: ms a call or step, host clock, median of {PROGRAM_CALLS}; device busy over one "
-          f"profiled call")
-    for what, p_ms, e_ms, p_busy, e_busy in PROGRAM_TIMES:
-        print(f"  {what}: program {p_ms:.2f} ms (busy {p_busy:.1f}%), eager {e_ms:.2f} ms (busy {e_busy:.1f}%), "
-              f"{e_ms / p_ms:.2f}x")
-    (g_ms, ge_ms), (p_gib, e_gib) = RL_PROGRAM["gate_ms"], RL_PROGRAM["peak_gib"]
-    print(f"  RL step bf16 B={RL_B}: peak device memory over {PROGRAM_STEPS} steps above their start (the program's "
-          f"graph pool included), program {p_gib:.2f} GiB, eager "
-          f"{e_gib:.2f} GiB; its distance gate alone on a step's [{2 * RL_B}, {len(d_centers_hr)}] spectra "
-          f"({peaks_mod.max_candidates(len(d_centers_hr))} ranks), CUDA events: program {g_ms:.3f} ms, eager "
-          f"{ge_ms:.3f} ms; device busy under the profiler: program "
-          f"{PROFILES['the distance gate, program'][1]:.3f} ms, eager {PROFILES['the distance gate, eager'][1]:.3f} "
-          f"ms of {PROFILES['the distance gate, eager'][0]:.1f}")
     print(f"  whole script {time.perf_counter() - t_start:.0f} s")
 
     print(json.dumps({"kernels": [

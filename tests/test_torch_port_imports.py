@@ -5,7 +5,7 @@ baselines' pipelines and the eval harness on synthesized data, runs the
 viewer CLI, the labeler, the C++ batcher, the calibration and the McStas
 spec, takes a dropout step, a remat step and a shifted level, and runs the
 data-parallel helpers and a one-rank gloo dry run, and runs the quality
-recipe at a tiny size, and imports the benchmark and `entry`, and runs the
+recipe at a tiny size, and imports `entry`, and runs the
 compiled programs (`core.graphs`: the three inference factories, `TrainState`
 and every step and eval factory, the baselines' pipelines, `RLState` and
 `make_rl_train_step`), with jax, flax, optax,
@@ -50,7 +50,7 @@ for name in ("ops.resize", "ops.norms", "ops.window", "ops.swin_block", "models.
              "apps.viewer", "apps.viewer_state", "apps.labeler", "apps.labeler_state", "apps.gui",
              "data.native_loader", "data.real", "data.calibration", "data.mcstas", "parallel.multihost",
              "parallel.sharding", "parallel.dryrun", "recipes.quality_run", "recipes.quality_continue",
-             "recipes.rl_run", "recipes.classical_baselines", "recipes.train_synthetic", "recipes.bench",
+             "recipes.rl_run", "recipes.classical_baselines", "recipes.train_synthetic",
              "entry", "core.graphs"):
     assert "swinwnet_tpu_torch." + name in sys.modules, name
 m = models.SwinWNet(embed_dim=12, depths=(1, 1, 1, 1), num_heads=(3, 3, 3, 3),
@@ -124,9 +124,7 @@ with tempfile.TemporaryDirectory() as tmp:
                                    "--out", tmp + "/Q"])
     assert summary["n_eval_samples"] == 6 and os.path.isdir(tmp + "/Q_ckpt")
 from swinwnet_tpu_torch import entry as entry_mod
-from swinwnet_tpu_torch.recipes import bench
 assert entry_mod.dryrun_multichip is parallel.dryrun_multichip
-assert bench.steady_iters(lambda n: None, 0.0)[0] == 3 and "full_b64_bf16" in bench.RECORD_NAMES
 x = torch.rand(1, 1, 20, 30)
 assert pipelines.make_inference_fn(m)(x)["images_masked_hr"].shape == (1, 2, 40, 60)
 assert pipelines.make_split_inference_fn(m).stage_a(x)[1].shape == (1, 1, 20, 30)
