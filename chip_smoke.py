@@ -26,12 +26,18 @@
    `patch_expand_norm` (PatchExpanding's shuffle and LayerNorm,
    ops/csrc/expand_norm.cu) against `patch_expand_norm_plain` at the five
    shapes the serving pipeline gives it (C/2 = 192 down to 12), B=1 and
-   B=64, in bf16 within one bf16 ulp of the plain value;
+   B=64, in bf16 within one bf16 ulp of the plain value; and
+   `window_attention` (the unfused levels' window attention,
+   ops/csrc/window_attention.cu) against `window_attention_plain` at the
+   four shapes the serving pipeline gives it (C/heads 384/24, 192/12,
+   384/12, 192/6), B=1 and B=64, in bf16 within the rounding bound of its
+   probabilities (attention_bound), one launch counted a call;
 3. serving: three [4, 2, 250, 480] requests through SwinWNetInference at the
    published width (embed 48, depths 2-2-2-2, heads 3-6-12-24, window 5) in
    bf16, random weights from a seed, live cross-attention; counts the
-   kernel's launches (22 per call) and the expansions' (11 per call, the
-   counter zeroed before the calls), checks the 8 stage tensors, compares
+   kernel's launches (22 per call), the expansions' (11 per call) and the
+   window attention's (30 per call; the counters zeroed before the calls)
+   and that the plain route launches none of them, checks the 8 stage tensors, compares
    with the pipeline run through the plain versions; then B=1 in fp32 (10);
 4. training, this script's second main path: SwinWNetTrainingPipeline.run in
    fp32 with fused_blocks and fused_deep on [8, 2, 250, 480] batches, one
@@ -48,7 +54,7 @@
    the host scipy oracle; identical and empty spectra give 0;
 7. RL serving: three [4, 2, 250, 480] requests of synthesized Bragg
    patterns through RLInference in bf16, every stage and alpha against the
-   plain route, 22 cst launches a call;
+   plain route, 22 cst launches and 30 window attention launches a call;
 8. the REINFORCE fine-tune, on a model whose rollout has peaks (rl_model)
    and Bragg patterns with lines where they are, so that the reward is not
    0: the first RL step in fp32 against the same step on the plain route
@@ -192,9 +198,10 @@ do; a route that swaps functions in at run time (the plain versions, the
 pad-mask control, [8]'s timers) runs under
 `core.graphs.run_eagerly()`, and so does a gloo group on the card. Every
 plain route (the blocks' plain versions, the unfused levels, a model built
-with fused_blocks=False) runs the expansions' plain version too
-(plain_expansions): serving runs under `torch.inference_mode`, where
-`PatchExpanding` takes the kernel whatever the blocks' route.
+with fused_blocks=False) runs the expansions' and the window attention's
+plain versions too (plain_levels): serving runs under
+`torch.inference_mode`, where `PatchExpanding` and `WindowAttention` take
+their kernels whatever the blocks' route.
 
 In bf16 each pipeline stage's mean error against the plain route is held to
 a limit from its own scale (bf16_limits): the smaller of how far bf16 moves
@@ -260,6 +267,7 @@ from swinwnet_tpu_torch.models import (
 from swinwnet_tpu_torch.models import layers as layers_mod
 from swinwnet_tpu_torch.ops import expand_norm as en
 from swinwnet_tpu_torch.ops import swin_block as sb
+from swinwnet_tpu_torch.ops import window_attention as wa
 from swinwnet_tpu_torch.ops.norms import denormalize_piecewise, ensure_2ch, normalize_piecewise
 from swinwnet_tpu_torch.ops.resize import bilinear_resize
 from swinwnet_tpu_torch.parallel import dryrun as dryrun_mod
@@ -367,6 +375,12 @@ LAUNCHES_PER_CALL = {torch.bfloat16: 22, torch.float32: 10}
 # of its input at B=1): the decoders' three, the SR head's two
 EXPANSIONS_PER_CALL = 11
 EXPAND_LEVELS = [(192, (16, 30)), (96, (32, 60)), (48, (63, 120)), (24, (125, 240)), (12, (250, 480))]
+# the unfused levels' window attention (window_attention): two launches a level
+# that the gate leaves unfused in bf16 serving with a head width of 16 or 32,
+# 30 a SwinWNet call (encoder L2, L3, the bottleneck and decoder stages 0 and
+# 1 of its three towers), at these (C, nH, token grid at B=1)
+ATTENTIONS_PER_CALL = 30
+ATTEND_LEVELS = [(384, 24, (16, 30)), (192, 12, (32, 60)), (384, 12, (32, 60)), (192, 6, (63, 120))]
 # the row-major kernel's signatures with fused_deep in fp32 (every level above
 # the fp32 cap of 48): (name, C, nH, token grid, batch for the check). B=1
 # where that gives at least 128 windows, else the training batch.
@@ -508,31 +522,33 @@ def block_cost(C, nH, Wt, dtype, masked):
 
 
 @contextlib.contextmanager
-def plain_expansions():
-    """Route PatchExpanding's kernel to its plain version on the card, for
+def plain_levels():
+    """Route the levels' serving kernels, PatchExpanding's and the unfused
+    levels' window attention, to their plain versions on the card, for
     comparison; the programs run eagerly meanwhile, since a graph keeps the
-    kernel it captured."""
-    orig = layers_mod.patch_expand_norm
+    kernels it captured."""
+    orig = layers_mod.patch_expand_norm, layers_mod.window_attention
     layers_mod.patch_expand_norm = en.patch_expand_norm_plain
+    layers_mod.window_attention = wa.window_attention_plain
     try:
         with graphs.run_eagerly():
             yield
     finally:
-        layers_mod.patch_expand_norm = orig
+        layers_mod.patch_expand_norm, layers_mod.window_attention = orig
 
 
 @contextlib.contextmanager
 def plain_blocks():
-    """Route the differentiable block's three entries and PatchExpanding's
-    kernel to their plain versions on the card, for comparison; the
-    programs (core.graphs) run eagerly meanwhile, since a graph keeps the
-    entries it captured."""
+    """Route the differentiable block's three entries and the levels'
+    serving kernels (plain_levels) to their plain versions on the card, for
+    comparison; the programs (core.graphs) run eagerly meanwhile, since a
+    graph keeps the entries it captured."""
     orig = (sb.fused_swin_block_cst, sb.fused_swin_block, sb.fused_swin_block_wide)
     sb.fused_swin_block_cst = sb.swin_block_plain
     sb.fused_swin_block = sb.swin_block_rowmajor_plain
     sb.fused_swin_block_wide = sb.swin_block_wide_plain
     try:
-        with plain_expansions():
+        with plain_levels():
             yield
     finally:
         sb.fused_swin_block_cst, sb.fused_swin_block, sb.fused_swin_block_wide = orig
@@ -558,23 +574,45 @@ def half(grid):
     return (-(-grid[0] // 2), -(-grid[1] // 2))
 
 
-def tower_launches(image_hw, batch, dtype, fused_deep, layout, with_sr_head):
-    """Launches per kernel of one tower pass (encoder, bottleneck, decoder,
-    and the SR head when the tower is the upscaler) over a [h, w] image at
-    patch size 2 (or a [2h, 2w] one at scale 2): two blocks a level."""
+def tower_levels(image_hw, with_sr_head):
+    """(C, nH, token grid) of each level of one tower pass (encoder,
+    bottleneck, decoder, and the SR head when the tower is the upscaler)
+    over a [h, w] image at patch size 2 (or a [2h, 2w] one at scale 2)."""
     g0 = half(image_hw)
     g1 = half(g0)
     g2 = half(g1)
     g3 = half(g2)
-    levels = [(48, g0), (96, g1), (192, g2), (384, g3), (384, g3), (384, g2), (192, g1), (96, g0)]
+    levels = [(48, 3, g0), (96, 6, g1), (192, 12, g2), (384, 24, g3), (384, 24, g3), (384, 12, g2), (192, 6, g1),
+              (96, 3, g0)]
     if with_sr_head:
-        levels += [(24, (2 * g0[0], 2 * g0[1])), (12, (4 * g0[0], 4 * g0[1]))]
+        levels += [(24, 3, (2 * g0[0], 2 * g0[1])), (12, 3, (4 * g0[0], 4 * g0[1]))]
+    return levels
+
+
+def tower_launches(image_hw, batch, dtype, fused_deep, layout, with_sr_head):
+    """Launches per kernel of one tower pass: two blocks a level."""
     out = [0, 0, 0]
-    for C, grid in levels:
+    for C, _, grid in tower_levels(image_hw, with_sr_head):
         k = gate_route(C, grid, batch, dtype, fused_deep, layout)
         if k is not None:
             out[k] += 2
     return out
+
+
+def tower_attentions(image_hw, batch, dtype, layout, with_sr_head):
+    """`window_attention` launches of one serving tower pass: two a level
+    that the gate leaves unfused, in bf16, at a head width of 16 or 32."""
+    if dtype != torch.bfloat16:
+        return 0
+    return sum(2 for C, nH, grid in tower_levels(image_hw, with_sr_head)
+               if gate_route(C, grid, batch, dtype, False, layout) is None and C // nH in (16, 32))
+
+
+def serve_attentions(batch, dtype, layout="cmajor"):
+    """`window_attention` launches of one SwinWNet serving call: segment_1,
+    the upscaler with its SR head, segment_2."""
+    tower = lambda head: tower_attentions((H, W), batch, dtype, layout, head)
+    return tower(False) + tower(True) + tower(False)
 
 
 def add(*counts):
@@ -644,6 +682,51 @@ def check_expand_norm():
                 raise SystemExit(f"patch_expand_norm disagrees with its plain version at C/2={c}, B={batch}")
             worst = max(worst, ulps)
             del y, out, want
+    return worst
+
+
+def attention_bound(out, qkv, bias, nH):
+    """`window_attention`'s distance from `window_attention_plain` over
+    its bound, at worst (at most 1), and the share of outputs equal to the
+    plain ones. The two sum in other orders, so a probability's fp32 value
+    may fall on the other side of its bf16 rounding: one bf16 ulp of P_j,
+    at most 2^-7 P_j. So the outputs differ by at most 2^-7 sum_j P_j |v_j|
+    before their own rounding to bf16, and by one bf16 ulp of the larger
+    value after it."""
+    want = wa.window_attention_plain(qkv, bias, nH, torch.bfloat16).float()
+    Bw, n, C3 = qkv.shape
+    C, hd = C3 // 3, C3 // 3 // nH
+    parts = qkv.reshape(Bw, n, 3, nH, hd).permute(2, 0, 3, 1, 4)
+    q = parts[0] * torch.tensor(hd ** -0.5, dtype=torch.bfloat16)
+    p = torch.softmax(q.float() @ parts[1].float().transpose(-1, -2) + bias, dim=-1).to(torch.bfloat16).float()
+    spread = (p @ parts[2].float().abs()).transpose(1, 2).reshape(Bw, n, C) * 2.0 ** -7
+    _, e = torch.frexp((want.abs() + spread).clamp_min(2.0 ** -126))
+    bound = spread + torch.ldexp(torch.ones_like(want), e - 8)
+    return ((out.float() - want).abs() / bound).max().item(), (out.float() == want).float().mean().item()
+
+
+def check_window_attention():
+    """`window_attention` against `window_attention_plain` at the serving
+    pipeline's four shapes of the unfused levels, B=1 and B=64, bf16,
+    within attention_bound; one launch counted a call. Returns the worst
+    distance over the bound."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    worst = 0.0
+    for C, nH, grid in ATTEND_LEVELS:
+        for batch in (1, SEG_B):
+            Bw = n_windows(grid, batch)
+            qkv = (torch.randn(Bw, 25, 3 * C, generator=gen, device="cuda") * 1.5).to(torch.bfloat16)
+            bias = torch.randn(nH, 25, 25, generator=gen, device="cuda")
+            before = wa.window_attention.launches
+            out = wa.window_attention(qkv, bias, nH, torch.bfloat16)
+            ratio, same = attention_bound(out, qkv, bias, nH)
+            ok = ratio <= 1 and wa.window_attention.launches == before + 1 and out.shape == (Bw, 25, C)
+            print(f"  window_attention C={C:3d} nH={nH:2d} B={batch:2d} ({Bw} windows): {ratio:.2f} of the rounding "
+                  f"bound at worst, {same:.6f} of the outputs the plain ones {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"window_attention disagrees with its plain version at C={C}, nH={nH}, B={batch}")
+            worst = max(worst, ratio)
+            del qkv, out
     return worst
 
 
@@ -892,7 +975,7 @@ def serve(dtype, batch, n_calls, rng, **model_kw):
     torch.cuda.synchronize()
 
     sb.reset_counts()
-    en.patch_expand_norm.launches = 0
+    en.patch_expand_norm.launches = wa.window_attention.launches = 0
     per_call, call_ms, first = [], [], None
     for req in requests:
         before = launches()
@@ -909,6 +992,10 @@ def serve(dtype, batch, n_calls, rng, **model_kw):
           f"({EXPANSIONS_PER_CALL} a call expected)")
     if expansions != EXPANSIONS_PER_CALL * n_calls:
         raise SystemExit(f"serving launched patch_expand_norm {expansions} times in {n_calls} calls")
+    attentions, want = wa.window_attention.launches, serve_attentions(batch, dtype, model_kw.get("fused_layout", "cmajor"))
+    print(f"  window_attention launches over the {n_calls} calls: {attentions} ({want} a call from the gate)")
+    if attentions != want * n_calls:
+        raise SystemExit(f"serving launched window_attention {attentions} times in {n_calls} calls")
 
     with plain_blocks():
         infer(requests[0])
@@ -921,7 +1008,7 @@ def serve(dtype, batch, n_calls, rng, **model_kw):
         with compute_dtype_of(model, torch.float32):  # the bf16 rule's reference
             infer(requests[0])
             ref = {k: getattr(infer, k).clone() for k in STAGE_NAMES}
-    if launches() != total or en.patch_expand_norm.launches != expansions:
+    if launches() != total or en.patch_expand_norm.launches != expansions or wa.window_attention.launches != attentions:
         raise SystemExit("the plain pipeline launched a kernel")
     del model, infer
     return first, call_ms, per_call, total, (plain, ref), plain_ms
@@ -1421,6 +1508,7 @@ def rl_serve(rng, n_calls=3):
     torch.cuda.synchronize()
     names = STAGE_NAMES + ("alpha",)
     sb.reset_counts()
+    wa.window_attention.launches = 0
     per_call, call_ms, first = [], [], None
     for req in requests:
         before = launches()
@@ -1431,7 +1519,7 @@ def rl_serve(rng, n_calls=3):
         per_call.append([b - a for a, b in zip(before, launches())])
         if first is None:
             first = {k: getattr(infer, k).clone() for k in names}
-    total = launches()
+    total, attentions = launches(), wa.window_attention.launches
     with plain_blocks():
         infer(requests[0])
         torch.cuda.synchronize()
@@ -1444,8 +1532,11 @@ def rl_serve(rng, n_calls=3):
             infer(requests[0])
             ref = {k: getattr(infer, k).clone() for k in names}
     want = expected_launches("serve", RL_B, bf16, False, "cmajor")
-    if launches() != total or any(n != want for n in per_call):
-        raise SystemExit(f"RL serving: launches per call {per_call} (gate: {want}), or the plain route launched")
+    want_att = serve_attentions(RL_B, bf16)
+    if (launches() != total or any(n != want for n in per_call) or attentions != want_att * n_calls
+            or wa.window_attention.launches != attentions):
+        raise SystemExit(f"RL serving: launches per call {per_call} (gate: {want}), window_attention {attentions} in "
+                         f"{n_calls} calls (gate: {want_att} a call), or the plain route launched")
     failed, _ = rl_stage_check(first, plain, ref)
     if failed:
         raise SystemExit(f"RL serving: {failed} disagree with the plain route or are not finite")
@@ -1465,7 +1556,8 @@ def rl_serve(rng, n_calls=3):
           f"{ratios['upscaled_norm']:.2f}x its limit (the mean check alone must refuse it) {'ok' if ok else 'FAIL'}")
     if not ok:
         raise SystemExit("RL serving: the upscaled_norm mean check does not catch a dropped pad mask")
-    print(f"  RL serving launches per call [cst, row-major, wide] {per_call} (gate: {want}); alpha "
+    print(f"  RL serving launches per call [cst, row-major, wide] {per_call} (gate: {want}), window_attention "
+          f"{want_att}; alpha "
           f"{[round(v, 4) for v in first['alpha'].flatten().tolist()]}")
     return call_ms, plain_ms, total
 
@@ -1662,7 +1754,7 @@ def unfused(model):
     for m in levels:
         m.fused_blocks = False
     try:
-        with plain_expansions():
+        with plain_levels():
             yield
     finally:
         for m in levels:
@@ -1754,6 +1846,7 @@ def serve_baseline(kind, rng, n_calls=3):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     sb.reset_counts()
+    wa.window_attention.launches = 0
     per_call, call_ms, first = [], [], None
     for req in requests:
         before = launches()
@@ -1764,7 +1857,7 @@ def serve_baseline(kind, rng, n_calls=3):
         per_call.append([b - a for a, b in zip(before, launches())])
         if first is None:
             first = out
-    total = launches()
+    total, attentions = launches(), wa.window_attention.launches
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     # the calls above replayed the program the warm-up captured: against the
     # same function run eagerly, the same bits
@@ -1773,22 +1866,26 @@ def serve_baseline(kind, rng, n_calls=3):
     if not bits:
         pipe_compare(f"{kind} replay, against the same call run eagerly", first, eager, bf16, relative=sr)
     eager_n = [b - a for a, b in zip(total, launches())]
+    eager_att = wa.window_attention.launches - attentions
     with unfused(model), graphs.run_eagerly():
         t0 = time.perf_counter()
         plain = fn(requests[0])
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
     want = tower_launches((H, W), batch, bf16, False, "cmajor", sr)
+    want_att = tower_attentions((H, W), batch, bf16, "cmajor", sr)
     shape = (batch, 1, 2 * H, 2 * W) if sr else (batch, 1, H, W)
     if (launches() != add(total, eager_n) or any(n != want for n in per_call + [eager_n])
-            or tuple(first.shape) != shape):
-        raise SystemExit(f"{kind}: launches per call {per_call}, eagerly {eager_n} (gate: {want}), the plain route "
-                         f"launched, or the output is {tuple(first.shape)} (want {shape})")
+            or attentions != want_att * n_calls or eager_att != want_att
+            or wa.window_attention.launches != attentions + eager_att or tuple(first.shape) != shape):
+        raise SystemExit(f"{kind}: launches per call {per_call}, eagerly {eager_n} (gate: {want}), window_attention "
+                         f"{attentions} in {n_calls} calls and {eager_att} eagerly (gate: {want_att} a call), the "
+                         f"plain route launched, or the output is {tuple(first.shape)} (want {shape})")
     if fn.program.num_graphs != 1:
         raise SystemExit(f"{kind}: {fn.program.num_graphs} graphs captured for one shape")
     PROGRAM_BITS[f"{kind} bf16"] = bits
     print(f"  {kind} bf16 [{batch}, {c}, {H}, {W}] -> {list(shape)}: launches per replay [cst, row-major, wide] "
-          f"{per_call} (gate: {want}); {fn.program.num_graphs} graph; the replays against the call run eagerly: "
+          f"{per_call} (gate: {want}), window_attention {want_att}; {fn.program.num_graphs} graph; the replays against the call run eagerly: "
           f"{'the same bits' if bits else 'within PIPE_TOL, not the same bits'}")
     if sr:
         sr_against_fp32(model, fn, requests[0], first, plain)
@@ -2110,7 +2207,7 @@ def viewer_main_path(rng):
 
         plain_model = SwinWNet(in_chans=1, error_matrix=True, fused_blocks=False, device="cuda", **PUBLISHED)
         plain_model.load_state_dict(load_pth(pth))
-        with plain_expansions():
+        with plain_levels():
             plain = ViewerSession(plain_model).run(images)
         worst = stage_check("viewer main vs fused_blocks=False", stages, plain, torch.float32)
         errs = [check_viewer_csv(f"{tmp}/main/input_id_curves.csv", stages["images"], d_centers_lr, VIEW_B),
@@ -3608,6 +3705,7 @@ def main() -> int:
     err_wide[bf16] = max(err_wide[bf16], err_tc["wide"])
     check_gradients(gen)
     print(f"  patch_expand_norm: worst {check_expand_norm():.2f} bf16 ulp of its plain version over the ten shapes")
+    print(f"  window_attention: worst {check_window_attention():.2f} of its rounding bound over the eight shapes")
 
     rng = np.random.default_rng(SEED)
     main_path = [0, 0, 0]  # launches per kernel over the main paths this script drives
@@ -3615,8 +3713,9 @@ def main() -> int:
     stages, call_ms, per_call, total, plain, plain_ms = serve(bf16, B, 3, rng)
     print(f"  kernel launches per call [cst, row-major, wide] {per_call} (total {total})")
     want = expected_launches("serve", B, bf16, False, "cmajor")
-    if want != [LAUNCHES_PER_CALL[bf16], 0, 0]:
-        raise SystemExit(f"the gate's count {want} is not LAUNCHES_PER_CALL")
+    if want != [LAUNCHES_PER_CALL[bf16], 0, 0] or serve_attentions(B, bf16) != ATTENTIONS_PER_CALL:
+        raise SystemExit(f"the gate's counts {want}, {serve_attentions(B, bf16)} are not LAUNCHES_PER_CALL, "
+                         f"ATTENTIONS_PER_CALL")
     check_pipeline(bf16, B, stages, plain, per_call, want)
     main_path = add(main_path, total)
     print("[3] serving, fp32, 2 requests of [1, 2, 250, 480]")

@@ -53,6 +53,7 @@ from ..ops.conv import conv2d as det_conv2d
 from ..ops.expand_norm import patch_expand_norm, patch_expand_norm_plain
 from ..ops.resize import bilinear_resize
 from ..ops.swin_block import fused_block_autodiff, kernel_plan
+from ..ops.window_attention import takes as window_attention_takes, window_attention, window_attention_plain
 from ..ops.window import (
     compute_mask,
     relative_position_index,
@@ -172,7 +173,10 @@ class WindowAttention(nn.Module):
     projection. `attn_chunk` > 0 computes the attention over that many
     windows at a time where JAX's `chunkable` holds (no mask, no active
     attention dropout, more windows than a chunk); the last chunk is ragged,
-    since nothing here needs the static shapes JAX pads for."""
+    since nothing here needs the static shapes JAX pads for. Where
+    `kernel_route` holds (bf16 serving on the card), the attention is one
+    launch of `ops.window_attention` a call, which makes no score tensor
+    and so takes no chunks."""
 
     def __init__(self, dim: int, window_size: int, num_heads: int, qkv_bias: bool, dtype: torch.dtype,
                  attn_drop: float = 0.0, proj_drop: float = 0.0, attn_chunk: int = 0):
@@ -199,30 +203,29 @@ class WindowAttention(nn.Module):
         Bw = x.shape[0]
         bias = self.rel_bias()
         K = self.attn_chunk
-        if K > 0 and mask is None and (self.attn_drop == 0.0 or deterministic) and Bw > K:
+        if self.kernel_route(x, mask, deterministic):
+            out = window_attention(linear(x, self.qkv, self.dtype), bias, self.num_heads, self.dtype)
+        elif K > 0 and mask is None and (self.attn_drop == 0.0 or deterministic) and Bw > K:
             out = torch.cat([self._attend(c, bias, None, True, None) for c in x.split(K)])
         else:
             out = self._attend(x, bias, mask, deterministic, generator)
         return dropout(linear(out, self.proj, self.dtype), self.proj_drop, deterministic, generator)
 
+    def kernel_route(self, x: torch.Tensor, mask: Optional[torch.Tensor], deterministic: bool) -> bool:
+        """Whether the attention of windows x [Bw, N, C] goes to the kernel:
+        x off the CPU, bf16, under `torch.inference_mode` (the serving
+        programs; training, the RL and stage-2 steps' `no_grad` parts and the
+        trainers' evals keep `_attend`), no mask, no attention dropout drawn,
+        and a shape the kernel takes (head width 16 or 32, N <= 32)."""
+        return (x.device.type != "cpu" and self.dtype == torch.bfloat16 and torch.is_inference_mode_enabled()
+                and mask is None and (self.attn_drop == 0.0 or deterministic)
+                and window_attention_takes(x.shape[2], self.num_heads, x.shape[1]))
+
     def _attend(self, x, bias, mask, deterministic, generator) -> torch.Tensor:
         """[k, N, C] windows -> the heads' outputs [k, N, C], before the
         output projection."""
-        Bw, N, C = x.shape
-        nH = self.num_heads
-        hd = C // nH
-        dt = self.dtype
-        qkv = linear(x, self.qkv, dt).reshape(Bw, N, 3, nH, hd).permute(2, 0, 3, 1, 4)
-        q, k, v = qkv[0] * torch.tensor(hd ** -0.5, dtype=dt), qkv[1], qkv[2]
-        with full_fp32(dt):
-            attn = q.float() @ k.float().transpose(-1, -2) + bias
-            if mask is not None:  # [nW, N, N] onto [B, nW, nH, N, N]
-                nW = mask.shape[0]
-                attn = (attn.reshape(Bw // nW, nW, nH, N, N) + mask[None, :, None]).reshape(Bw, nH, N, N)
-            attn = torch.softmax(attn, dim=-1).to(dt)
-            attn = dropout(attn, self.attn_drop, deterministic, generator)
-            out = (attn.float() @ v.float()).to(dt)  # [Bw, nH, N, hd]
-        return out.transpose(1, 2).reshape(Bw, N, C)
+        drop = lambda attn: dropout(attn, self.attn_drop, deterministic, generator)
+        return window_attention_plain(linear(x, self.qkv, self.dtype), bias, self.num_heads, self.dtype, mask, drop)
 
 
 @functools.lru_cache(maxsize=16)

@@ -6,8 +6,10 @@ Each case's table is pinned to the card's numbers (PERF.md §3 and §6, where
 chip_smoke.py's launch checks and the benchmark's counters read them on the
 H100): 22 cst a bf16 SwinWNet serving call at any batch (4 of them the
 narrow body) and 10 in fp32, 16 wide on the `nmajor` route, 11
-`patch_expand_norm` a SwinWNet serving call and 3 a SwinUNet one; 6 cst a
-bf16 SwinUNet call and 2 an fp32 one, 10 a SwinUNetSR call; 2 / 8 / 8 / 10
+`patch_expand_norm` a SwinWNet serving call and 3 a SwinUNet one, 30
+`window_attention` a bf16 SwinWNet serving call at any batch and 10 a
+SwinUNet or SwinUNetSR one; 6 cst a bf16 SwinUNet call and 2 an fp32 one,
+10 a SwinUNetSR call; 2 / 8 / 8 / 10
 cst and 14 / 24 / 24 / 42 row-major an fp32 `fused_deep` step (stage 1 / 2 /
 3 even / 3 odd), 2 wide an `nmajor` stage-1 step; 26 cst a bf16 RL step (8
 of them narrow, as chip_smoke.py [22] reads it) and 14 an fp32 one, each
@@ -23,12 +25,15 @@ by level over the towers each call or step runs, two blocks a level. The
 counts with no JAX counterpart follow rules: in bf16 a kernel level of
 C <= 24 (the SR head's) takes the narrow body; a serving call's towers
 expand 3 times each and an SR head twice more (SwinWNet 3 + 3 + 2 + 3,
-SwinUNetSR 3 + 2), training and RL steps never through the kernel.
+SwinUNetSR 3 + 2), training and RL steps never through the kernel; in bf16
+serving each block of a level the gate leaves unfused launches the window
+attention kernel where it takes the level's head width (16 or 32), and
+training and RL steps never do.
 
 The models are built on the `meta` device, so nothing is computed and a
-case takes about a second. The two launch seams, `ops.swin_block._launch`
-and `ops.expand_norm.patch_expand_norm`, run as they are but for their
-device guard, which is widened to `meta`; the libraries they load are
+case takes about a second. The three launch seams, `ops.swin_block._launch`,
+`ops.expand_norm.patch_expand_norm` and `ops.window_attention.window_attention`,
+run as they are but for their device guard, which is widened to `meta`; the libraries they load are
 replaced by ones whose launches return success. So the operand checks, the
 plan and the counting are the card's. A level that the gate
 (`BasicLayer.fused_route`) sends off its kernel leaves a count short.
@@ -51,6 +56,7 @@ from swinwnet_tpu_torch.models import AlphaPolicy, SwinUNet, SwinUNetSR, SwinWNe
 from swinwnet_tpu_torch.models import layers as layers_mod
 from swinwnet_tpu_torch.ops import expand_norm as en
 from swinwnet_tpu_torch.ops import swin_block as sb
+from swinwnet_tpu_torch.ops import window_attention as wa
 from swinwnet_tpu_torch.physics import Qwrapper, d_centers_hr
 from swinwnet_tpu_torch.pipelines import (
     make_inference_fn,
@@ -81,7 +87,7 @@ PUBLISHED = dict(patch_size=2, embed_dim=48, depths=(2, 2, 2, 2), num_heads=(3, 
                  fused_blocks=True, device="meta")
 WNET = dict(in_chans=1, error_matrix=True, **PUBLISHED)
 COUNTED = ("fused_swin_block_cst", "fused_swin_block", "fused_swin_block_wide", "swin_block_narrow",
-           "patch_expand_norm", "distance_gate", "rl_reward")
+           "patch_expand_norm", "window_attention", "distance_gate", "rl_reward")
 
 
 def on_meta(fn):
@@ -98,8 +104,9 @@ def on_meta(fn):
     return namespace[fn.__name__]
 
 
-LAUNCH, EXPAND = on_meta(sb._launch), on_meta(en.patch_expand_norm)
-LIBRARY = types.SimpleNamespace(swin_block_launch=lambda *args: 0, expand_norm_launch=lambda *args: 0)
+LAUNCH, EXPAND, ATTEND = on_meta(sb._launch), on_meta(en.patch_expand_norm), on_meta(wa.window_attention)
+LIBRARY = types.SimpleNamespace(swin_block_launch=lambda *args: 0, expand_norm_launch=lambda *args: 0,
+                                window_attention_launch=lambda *args: 0)
 
 
 @pytest.fixture(autouse=True)
@@ -108,6 +115,8 @@ def meta_seams(monkeypatch):
     monkeypatch.setattr(sb, "_load", lambda: LIBRARY)
     monkeypatch.setattr(layers_mod, "patch_expand_norm", EXPAND)
     monkeypatch.setattr(en, "_load", lambda: LIBRARY)
+    monkeypatch.setattr(layers_mod, "window_attention", ATTEND)
+    monkeypatch.setattr(wa, "_load", lambda: LIBRARY)
     monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: types.SimpleNamespace(cuda_stream=0))
 
@@ -174,8 +183,9 @@ def jax_entry(C, num_heads, dtype, batch, grid, fused_deep, fused_layout):
 
 def reference(passes, dtype, batch, serving, fused_deep=False, fused_layout="cmajor", rl=False):
     """The table of one call or step that runs the tower `passes`: the
-    kernel entries by the JAX gate, the narrow body and the expansions by
-    their rules, the RL step's gate and reward once each."""
+    kernel entries by the JAX gate, the narrow body, the expansions and the
+    unfused levels' window attention by their rules, the RL step's gate and
+    reward once each."""
     want = table(distance_gate=int(rl), rl_reward=int(rl))
     for tower, image_hw in passes:
         for C, num_heads, k in TOWER + (SR_HEAD if tower == "up" else []):
@@ -183,6 +193,8 @@ def reference(passes, dtype, batch, serving, fused_deep=False, fused_layout="cma
             if entry:
                 want[entry] += 2
                 want["swin_block_narrow"] += 2 * (dtype == "bfloat16" and C <= sb.NARROW_MAX_C)
+            else:
+                want["window_attention"] += 2 * (serving and dtype == "bfloat16" and wa.takes(C, num_heads, 25))
         want["patch_expand_norm"] += (3 + 2 * (tower == "up")) * serving
     return want
 
@@ -197,14 +209,15 @@ def swinwnet_serving(route, dtype, **kw):
 
 
 WNET_CALL = [SEG, UP, SEG]
-SERVE_BF16 = table(fused_swin_block_cst=22, swin_block_narrow=4, patch_expand_norm=11)
+SERVE_BF16 = table(fused_swin_block_cst=22, swin_block_narrow=4, patch_expand_norm=11, window_attention=30)
 SERVING = {
     "bf16 B=1": ("single", "bfloat16", 1, {}, SERVE_BF16),
     "bf16 B=4": ("single", "bfloat16", 4, {}, SERVE_BF16),
     "bf16 B=64": ("single", "bfloat16", 64, {}, SERVE_BF16),
     "fp32 B=4": ("single", "float32", 4, {}, table(fused_swin_block_cst=10, patch_expand_norm=11)),
     "bf16 nmajor B=4": ("single", "bfloat16", 4, {"fused_layout": "nmajor"},
-                        table(fused_swin_block_wide=16, swin_block_narrow=4, patch_expand_norm=11)),
+                        table(fused_swin_block_wide=16, swin_block_narrow=4, patch_expand_norm=11,
+                              window_attention=36)),
     "bf16 split B=4": ("split", "bfloat16", 4, {}, SERVE_BF16),
     "bf16 RL B=4": ("rl", "bfloat16", 4, {}, SERVE_BF16),
 }
@@ -221,10 +234,11 @@ def test_swinwnet_serving_call(case):
 
 
 TOWERS = {
-    "SwinUNet bf16 B=64": (SwinUNet, "bfloat16", 64, table(fused_swin_block_cst=6, patch_expand_norm=3)),
+    "SwinUNet bf16 B=64": (SwinUNet, "bfloat16", 64, table(fused_swin_block_cst=6, patch_expand_norm=3,
+                                                           window_attention=10)),
     "SwinUNet fp32 B=64": (SwinUNet, "float32", 64, table(fused_swin_block_cst=2, patch_expand_norm=3)),
     "SwinUNetSR bf16 B=4": (SwinUNetSR, "bfloat16", 4, table(fused_swin_block_cst=10, swin_block_narrow=4,
-                                                             patch_expand_norm=5)),
+                                                             patch_expand_norm=5, window_attention=10)),
 }
 
 
